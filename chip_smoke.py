@@ -9,13 +9,16 @@ Phases (each prints one line; any failure raises, exit code non-zero):
 0. device   — a CUDA card is required (no CPU fallback); its name and
               power limit from nvidia-smi.
 1. build    — nvcc builds the hand-written kernels of
-              phy_engine_tpu_torch/ops/csrc (into build/, at first use).
-2. kernels  — each kernel against its plain torch version on the card at
-              (B, n) = (256, 256) and (8, 128): random, MNA-border and
+              phy_engine_tpu_torch/ops/csrc (gj.cu, turbo.cu; one nvcc per
+              source, all at once; into build/, at first use), and prints
+              ptxas's register / shared-memory lines for each kernel.
+2. kernels  — each GJ kernel against its plain torch version on the card
+              at (B, n) = (256, 256) and (8, 128): random, MNA-border and
               singular-lane systems, within gj_cases.TOL (1e-4 relative
               to max|x| of the lane) of the plain version and of float64
-              numpy; a singular lane non-finite in both.  Times both at
-              the main path's shape (CUDA events).
+              numpy; a singular lane non-finite in both.  Times both, and
+              torch.linalg.inv / torch.linalg.solve as the library call,
+              at the main path's shape (CUDA events).
 3. ladder   — the 63-stage diode ladder, B = 6, 25 frozen-Newton steps,
               on the card and on the CPU (plain kernels) with the same
               params: traces within 1e-6 of max|trace|.
@@ -25,6 +28,22 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               finite; lanes 0-3 agree with a CPU run of those lanes to
               1e-6; circuit-steps/s (CUDA events); both kernels' launch
               counts over this run are > 0.
+6. turbo    — the whole-tick digital kernel against its plain torch
+              version, bit-identical on every slot, tick, lane and plane:
+              (a) RV32 from reset, 8 ticks, B = 2; (b) the fp16 adder with
+              random V/U words (X and Z lanes included), 16 ticks, B = 4,
+              full history and a watch list; (c) case (b) with the state
+              forced into the global-memory placement.  Times kernel and
+              plain version at (a) (CUDA events).
+7. digital main path — Circuit.digital_run on the RV32 core (22,051
+              gates + 640 flip-flops at -O1), one instance, reset plus 200
+              clocks (404 ticks): result = 4264 and done = 1 on lane 0 of
+              the last tick; the turbo kernel launched; wall time (CUDA
+              events) and gate-evals/s = (gates + FFs) x ticks / wall.
+8. batched  — Circuit.digital_run_batch, 128 RV32 instances x 400 ticks
+              from the common post-reset state, watching result and done:
+              every instance ends with 4264; aggregate gate-evals/s and
+              peak device memory.
 
 Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -33,11 +52,13 @@ measurements, and, last, {"ok": true, "device": {...}}.
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from phy_engine_tpu_torch import workloads
+from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
 from phy_engine_tpu_torch.ops import _build, gj
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
@@ -46,13 +67,30 @@ from phy_engine_tpu_torch.parallel.batch import batch_params, batch_state, batch
 KERNELS = {
     "gj_inverse32": dict(
         wrapper=gj.gj_inverse32, plain=gj.gj_inverse32_plain,
+        library=torch.linalg.inv,
+        source="phy_engine_tpu_torch/ops/csrc/gj.cu",
         replaces="phy_engine_tpu/ops/gj.py:364"),
     "gj_solve32": dict(
         wrapper=gj.gj_solve32, plain=gj.gj_solve32_plain,
+        library=lambda A, b: torch.linalg.solve(A, b),
+        source="phy_engine_tpu_torch/ops/csrc/gj.cu",
         replaces="phy_engine_tpu/ops/gj.py:465"),
 }
-SOURCE = "phy_engine_tpu_torch/ops/csrc/gj.cu"
+TURBO = dict(name="turbo_tick", wrapper=turbo.run_turbo,
+             source="phy_engine_tpu_torch/ops/csrc/turbo.cu",
+             replaces="phy_engine_tpu/digital/turbo.py:665")
 TRACE_TOL = 1e-6
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, FP32 on
+# the CUDA cores (an FMA counts two), and 32-bit integer logic on the CUDA
+# cores (132 SMs x 128 lanes x 1.98 GHz, one operation per lane per clock)
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+INT32_OPS = 132 * 128 * 1.98e9
+# int32 operations of one gate evaluation on a V/U plane pair: a 4-state
+# 2-input gate needs at least 8 three-input logic operations (operand
+# and output inversions, the core's V and U planes), a flip-flop 16
+GATE_OPS, FF_OPS = 8, 16
 
 
 def check(cond, what):
@@ -71,9 +109,29 @@ def smi_line():
     return out.strip().splitlines()[0].strip()
 
 
-def run_kernel(name, A, b, plain=False):
-    f = KERNELS[name]["plain" if plain else "wrapper"]
+def run_kernel(name, A, b, plain=False, library=False):
+    f = KERNELS[name]["library" if library else "plain" if plain
+                      else "wrapper"]
     return f(A) if name == "gj_inverse32" else f(A, b)
+
+
+def bound(nbytes, ops, rate):
+    """Least time (ms) for the work and what sets it."""
+    t_b, t_o = nbytes / HBM_BPS, ops / rate
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def gj_bound(name, B, n):
+    """Gauss-Jordan as the kernels run it: at pivot k every other row
+    (n - 1) is updated in the columns after k — 2n - k - 1 of [A | I]
+    for the inverse, n - k of [A | b] for the solve — one multiply and
+    one subtract each, plus n divisions for the factors.  Bytes: A (and
+    b) read once, the result written once, f32."""
+    cols = [(2 * n - k - 1) if name == "gj_inverse32" else (n - k)
+            for k in range(n)]
+    flops = B * sum(2 * (n - 1) * c + n for c in cols)
+    words = B * (2 * n * n if name == "gj_inverse32" else n * n + 2 * n)
+    return bound(4 * words, flops, FP32_FLOPS)
 
 
 def numpy_ref(name, A, b):
@@ -128,7 +186,8 @@ def phase2_kernels(dev):
                     r["max_abs_err"] = max(r["max_abs_err"], err)
                 say(2, f"{name} B={B} n={n} {case}: rel err vs plain "
                     f"{e_plain:.3e}, vs numpy {e_np:.3e}")
-    # time both versions at the main path's shape: plain, kernel, kernel, plain
+    # time both versions at the main path's shape: plain, kernel, kernel,
+    # plain; then the library call that computes the same function
     A, b = system("random", 256, 256, seed=1)
     Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
     for name, r in results.items():
@@ -138,9 +197,82 @@ def phase2_kernels(dev):
              time_ms(lambda: run_kernel(name, Ad, bd, plain=True), 3)]
         r["ms"] = (t[1] + t[2]) / 2
         r["plain_ms"] = (t[0] + t[3]) / 2
+        r["library_ms"] = time_ms(
+            lambda: run_kernel(name, Ad, bd, library=True), 20)
+        r["bound_ms"], r["bound_by"] = gj_bound(name, 256, 256)
         say(2, f"{name} B=256 n=256: kernel {t[1]:.4f} / {t[2]:.4f} ms, "
-            f"plain {t[0]:.4f} / {t[3]:.4f} ms")
+            f"plain {t[0]:.4f} / {t[3]:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
     return results
+
+
+def turbo_bound(plan, B, T, width):
+    """Bytes: the chunk tables, the start planes and the forced planes
+    read once, the history written once.  Operations: every valid gate
+    and flip-flop slot of the plan, once per tick and instance."""
+    tab_words = (plan.cone_tab.size + plan.full_tab.size + plan.ff_tab.size
+                 + 2 * plan.nf_pad)
+    words = tab_words + B * (2 * plan.K + 2 * T * plan.nf_pad
+                             + 2 * T * width)
+    gates = (int((plan.cone_tab[9, :plan.n_cone * 128] != 0).sum())
+             + int((plan.full_tab[9, :plan.n_full * 128] != 0).sum()))
+    ffs = int((plan.ff_tab[10] != 0).sum())
+    ops = B * T * (gates * GATE_OPS + ffs * FF_OPS)
+    return bound(4 * words, ops, INT32_OPS)
+
+
+def turbo_same(case, placement=None, watch=None):
+    """Kernel and plain version on one case: bit-identical planes."""
+    plan, st0, FV, FU = case
+    w = None if watch is None else torch.tensor(watch, device=st0.device)
+    hv, hu = turbo.run_turbo(plan, st0, FV, FU, watch=watch,
+                             placement=placement)
+    pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU), w)
+    torch.cuda.synchronize()
+    return torch.equal(hv, pv) and torch.equal(hu, pu)
+
+
+def turbo_kernel_ms(dev, rv32, B, ticks, watch=None):
+    """The turbo kernel alone on RV32 from its all-X state through
+    ``ticks`` ticks of the main path's schedule, B instances (CUDA
+    events; not counted as main-path launches)."""
+    plan, st0, FV, FU = turbo_cases.rv32_case(B, ticks, dev, design=rv32)
+    return time_ms(lambda: turbo.run_turbo(plan, st0, FV, FU, watch=watch),
+                   3)
+
+
+def phase6_turbo(dev, rv32):
+    r = {"max_abs_err": 0}
+    case_a = turbo_cases.rv32_case(2, 8, dev, design=rv32)
+    check(turbo_same(case_a), "turbo (a) RV32 B=2 T=8: kernel != plain")
+    say(6, "(a) RV32 from reset, B=2, 8 ticks, full history: "
+        "kernel bit-identical to plain")
+    case_b = turbo_cases.fp16_case(4, 16, seed=6, device=dev)
+    watch = list(range(0, case_b[0].S, 5))
+    for placement, tag in (("shared", "b"), ("global", "c")):
+        for w in (None, watch):
+            check(turbo_same(case_b, placement, w),
+                  f"turbo ({tag}) fp16 {placement} watch={w is not None}: "
+                  "kernel != plain")
+        say(6, f"({tag}) fp16 adder, random V/U with X/Z lanes, B=4, 16 "
+            f"ticks, {placement} placement, full history and watch: "
+            "bit-identical")
+    plan, st0, FV, FU = case_a
+    FVp, FUp = plan.pad_forced(FV, FU)
+    t = [time_ms(lambda: turbo.run_turbo_plain(plan, st0, FVp, FUp), 1),
+         time_ms(lambda: turbo.run_turbo(plan, st0, FV, FU), 10),
+         time_ms(lambda: turbo.run_turbo(plan, st0, FV, FU), 10),
+         time_ms(lambda: turbo.run_turbo_plain(plan, st0, FVp, FUp), 1)]
+    r["ms"] = (t[1] + t[2]) / 2
+    r["plain_ms"] = (t[0] + t[3]) / 2
+    r["library_ms"] = None          # no PyTorch call computes a gate tick
+    r["bound_ms"], r["bound_by"] = turbo_bound(plan, 2, 8, plan.K)
+    say(6, f"RV32 B=2 T=8 ({plan.n_chunks_per_tick} chunks/tick, K="
+        f"{plan.K}, {4 * turbo.state_words(plan)} B of state): kernel "
+        f"{t[1]:.3f} / {t[2]:.3f} ms, plain {t[0]:.1f} / {t[3]:.1f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return r
 
 
 def ladder_run(ir, params, B, steps, device):
@@ -168,8 +300,12 @@ def main():
     t0 = time.perf_counter()
     so = _build.build()
     _build.load_library()
-    say(1, f"{'built' if fresh else 'reused'} {so.name}: "
-        f"{time.perf_counter() - t0:.2f} s")
+    say(1, f"{'built' if fresh else 'reused'} {so.name} from "
+        f"{', '.join(_build.SOURCES)}: {time.perf_counter() - t0:.2f} s")
+    for line in (Path(str(so) + ".ptxas.txt").read_text().splitlines()
+                 if fresh else []):
+        if "Compiling entry" in line or "registers" in line:
+            say(1, line.strip())
 
     # phase 2: each kernel against its plain version
     results = phase2_kernels(dev)
@@ -228,12 +364,84 @@ def main():
         f"lanes 0-3 vs CPU {rel5:.3e}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
+    # the RV32 core, synthesized once for phases 6-8
+    t0 = time.perf_counter()
+    rv32 = workloads.build_rv32(device=dev)
+    say(6, f"RV32 synthesized at -O1: {rv32.gates} gates + FFs, "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+
+    # phase 6: the turbo kernel against its plain version
+    results[TURBO["name"]] = phase6_turbo(dev, rv32)
+
+    # phase 7: the digital main path, one instance
+    cycles = 200
+    ticks = 4 + 2 * cycles
+    workloads.rv32_run(1, 2, design=rv32)                        # warm-up
+    torch.cuda.synchronize()
+    turbo.run_turbo.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res, done = workloads.rv32_run(1, cycles, design=rv32)
+    end.record()
+    torch.cuda.synchronize()
+    launches[TURBO["name"]] = turbo.run_turbo.launches
+    sec = start.elapsed_time(end) / 1e3
+    check(launches[TURBO["name"]] > 0, "digital main path never launched "
+          "the turbo kernel")
+    check(int(res[0]) == rv32.expect and int(done[0]) == 1,
+          f"RV32 result {int(res[0])} done {int(done[0])}, expected "
+          f"{rv32.expect} and 1")
+    say(7, f"RV32 Circuit.digital_run {ticks} ticks: result {int(res[0])}, "
+        f"done {int(done[0])}; wall {sec * 1e3:.1f} ms, "
+        f"{rv32.gates * ticks / sec:.4e} gate-evals/s on {smi}; turbo "
+        f"launches {launches[TURBO['name']]}")
+    k_ms = turbo_kernel_ms(dev, rv32, 1, ticks)
+    say(7, f"the kernel alone, B=1 x {ticks} ticks, full history: "
+        f"{k_ms:.2f} ms ({k_ms / ticks * 1e3:.1f} us per tick), "
+        f"{100 * k_ms / (sec * 1e3):.1f} % of the wall above")
+
+    # phase 8: 128 instances through digital_run_batch
+    B = 128
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    turbo.run_turbo.launches = 0
+    start.record()
+    res, done = workloads.rv32_run(B, cycles, design=rv32)
+    end.record()
+    torch.cuda.synchronize()
+    sec = start.elapsed_time(end) / 1e3
+    n8 = turbo.run_turbo.launches
+    check(n8 > 0, "batched path never launched the turbo kernel")
+    check(res.shape == (B,) and bool((res == rv32.expect).all())
+          and bool((done == 1).all()),
+          f"batched RV32: {int((res != rv32.expect).sum())} of {B} "
+          "instances did not end with the expected result")
+    say(8, f"RV32 digital_run_batch B={B} x {2 * cycles} ticks (+4 reset "
+        f"ticks): all {B} results {rv32.expect}; wall {sec * 1e3:.1f} ms, "
+        f"aggregate {rv32.gates * (B * 2 * cycles + 4) / sec:.4e} "
+        f"gate-evals/s on {smi}; turbo launches {n8}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    eng = rv32.circuit.prepare()
+    watch = [eng.ir.node_sig[id(n)]
+             for n in rv32.ports["result"] + rv32.ports["done"]]
+    k_ms = turbo_kernel_ms(dev, rv32, B, ticks, watch)
+    say(8, f"the kernel alone, B={B} x {ticks} ticks, watching "
+        f"{len(watch)} signals: {k_ms:.2f} ms "
+        f"({k_ms / ticks * 1e3:.1f} us per tick), "
+        f"{rv32.gates * B * ticks / (k_ms / 1e3):.4e} gate-evals/s")
+
     print(smi)
+    meta = {k: dict(source=v["source"], replaces=v["replaces"])
+            for k, v in KERNELS.items()}
+    meta[TURBO["name"]] = dict(source=TURBO["source"],
+                               replaces=TURBO["replaces"])
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[name]["replaces"], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": meta[name]["source"],
+         "replaces": meta[name]["replaces"], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for name, r in results.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,9 +3,10 @@
 The JAX package ``phy_engine_tpu`` stays the reference; this package runs
 the same engine in PyTorch on an NVIDIA H100 (and, through the plain
 versions of its kernels, on the CPU for the parity tests).  It never
-imports ``jax`` or ``phy_engine_tpu``: the netlist, the model metadata
-and the stamp-IR lowering are carried here as small host-side copies
-whose output the tests hold identical to the JAX package's.
+imports ``jax`` or ``phy_engine_tpu``: the netlist, the model metadata,
+the stamp-IR lowering, the Verilog front end and synthesis, and the
+digital IR and turbo plan are carried here as host-side copies whose
+output the tests hold identical to the JAX package's.
 
 Dtype policy (mirrors the reference's x64 mode and its
 ``Precision.HIGHEST`` GEMMs):

@@ -40,18 +40,18 @@ MAX_NEWTON_ITER = 64      # circuit.h:898
 # parameter/state helpers
 # ---------------------------------------------------------------------------
 
-def initial_params(ir: AnalogIR, device=None) -> Dict[str, torch.Tensor]:
+def initial_params(ir: AnalogIR, device="cuda") -> Dict[str, torch.Tensor]:
     return {f.mdef.id_name: torch.as_tensor(f.P, dtype=F64, device=device)
             for f in ir.families}
 
 
-def initial_state(ir: AnalogIR, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+def initial_state(ir: AnalogIR, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     return {f.mdef.id_name: {k: torch.as_tensor(v, dtype=F64, device=device)
                              for k, v in f.state0.items()}
             for f in ir.families}
 
 
-def initial_x(ir: AnalogIR, device=None) -> torch.Tensor:
+def initial_x(ir: AnalogIR, device="cuda") -> torch.Tensor:
     return torch.zeros(ir.n_unknowns, dtype=F64, device=device)
 
 
@@ -478,7 +478,7 @@ FROZEN_BAD_FRAC = 0.1     # escalate refresh -> full refactor when > this
                           # fraction sits outside the Newton-Schulz basin
 
 
-def frozen_fac_init(B: int, n: int, npad: int, device=None):
+def frozen_fac_init(B: int, n: int, npad: int, device="cuda"):
     """Empty factor carry for `newton_solve_frozen` (valid=False):
     (Minv (B, npad, npad) f32, rs, cs (B, n) f32, tol (B, n) f64, valid)."""
     return (torch.zeros((B, npad, npad), dtype=F32, device=device),

@@ -1,5 +1,15 @@
-"""Device families of the port (R, C, VAC, PN junction)."""
+"""Device families of the port: R, C, VAC, PN junction, and the digital
+gates' metadata."""
 
-from .base import MODEL_REGISTRY, DeviceClass, ModelDef, StampCtx  # noqa: F401
+from .base import (MODEL_REGISTRY, DeviceClass, ModelDef, StampCtx,  # noqa: F401
+                   UpdatePhase, register)
 from .linear import CAPACITOR, RESISTANCE, VAC  # noqa: F401
 from .nonlinear import PN_JUNCTION  # noqa: F401
+from .digital_gates import (AND, OR, NOT, YES, XOR, XNOR, NAND, NOR, IMP,  # noqa: F401
+                            NIMP, INPUT, OUTPUT, TRI_STATE, RESOLVE2,
+                            CASE_EQ, IS_UNKNOWN, TICK_DELAY, SCHMITT_TRIGGER,
+                            EIGHT_BIT_INPUT, EIGHT_BIT_DISPLAY,
+                            D_FF, D_FF_ARSTN, D_LATCH, JK_FF, T_FF, T_BAR_FF,
+                            HALF_ADDER, FULL_ADDER, HALF_SUBTRACTOR,
+                            FULL_SUBTRACTOR, MUL2, COUNTER4,
+                            RANDOM_GENERATOR4)

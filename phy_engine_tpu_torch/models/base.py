@@ -15,6 +15,9 @@ the Monte-Carlo batch (or absent).
 * ``step_update(P, v, ib, state, dt, t)`` -> new_state (transient
   companion recurrence between accepted steps);
 * ``check_conv(P, v, state)`` -> (..., n_inst) bool convergence veto.
+
+Digital families carry metadata only (``digital_op``, ``din_pins``,
+``dout_pins``): their behaviour lives in :mod:`..digital`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,14 @@ class DeviceClass(enum.Enum):
     LINEAR = "linear"
     NONLINEAR = "non_linear"
     DIGITAL = "digital"
+
+
+class UpdatePhase(enum.Enum):
+    """Digital scheduling class, mirrors ``digital_update_method_t``
+    (node.h): update_table / before_all_clk / after_all_clk."""
+    TABLE = 0
+    BEFORE = 1
+    AFTER = 2
 
 
 @dataclass
@@ -64,6 +75,16 @@ class ModelDef:
     nonlinear: bool = False
     # internal unknowns per instance, appended to the pin vector
     n_internal: int = 0
+
+    # ---- digital metadata ----
+    digital_op: Optional[str] = None       # opcode key into digital engine
+    update_phase: UpdatePhase = UpdatePhase.TABLE
+    # pin indices (into .pins) that are digital inputs / outputs; pin
+    # ordering itself matches the reference headers exactly.
+    din_pins: Tuple[int, ...] = ()
+    dout_pins: Tuple[int, ...] = ()
+    # externally visible attribute names in reference order
+    attrs: Tuple[str, ...] = ()
 
     def init_state_row(self, params) -> Dict[str, float]:
         out = {}

@@ -1,5 +1,6 @@
 """Host-side netlist data structures (the subset of
-``phy_engine_tpu/netlist/netlist.py`` that the analog lowering reads).
+``phy_engine_tpu/netlist/netlist.py`` that the analog lowering, Verilog
+synthesis and the digital engine read).
 
 Mirrors the reference's netlist (``include/phy_engine/netlist/
 netlist.h``): model instances with pins and branch unknowns, nets with
@@ -102,3 +103,8 @@ class Netlist:
 
     def live_models(self) -> List[ModelInstance]:
         return [m for m in self.models if m is not None and m.enabled]
+
+    def all_nodes(self, include_ground: bool = True) -> List[Node]:
+        out = ([self.ground_node] if include_ground else [])
+        out.extend(self.nodes)
+        return out

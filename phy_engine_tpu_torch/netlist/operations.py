@@ -1,7 +1,7 @@
 """Netlist operations (port of ``phy_engine_tpu/netlist/operations.py``:
-``add_model``, ``create_node``, ``add_to_node`` and the
-``remove_from_node`` that re-connecting a pin needs; reference
-``netlist/operation.h:49-217``)."""
+``add_model``, ``delete_model``, ``create_node``, ``drop_node``,
+``add_to_node``, ``remove_from_node`` and ``merge_node`` — what netlist
+building and synthesis use; reference ``netlist/operation.h:49-259``)."""
 
 from __future__ import annotations
 
@@ -25,12 +25,40 @@ def add_model(nl: Netlist, mdef_or_inst, params=None, name: str = "") -> ModelIn
     return inst
 
 
+def delete_model(nl: Netlist, inst: ModelInstance) -> bool:
+    """Remove a device (tombstone, like operation.h:91-128) and detach pins."""
+    pos = getattr(inst, "_pos", -1)
+    if not (0 <= pos < len(nl.models)) or nl.models[pos] is not inst:
+        try:                           # fallback for foreign instances
+            pos = nl.models.index(inst)
+        except ValueError:
+            return False
+    for pin in inst.pins:
+        if pin.node is not None:
+            remove_from_node(nl, inst, pin.index, pin.node)
+    nl.models[pos] = None
+    nl.touch()
+    return True
+
+
 def create_node(nl: Netlist, name: str = "") -> Node:
     node = Node(name=name)
     node._pos = len(nl.nodes)
     nl.nodes.append(node)
     nl.touch()
     return node
+
+
+def drop_node(nl: Netlist, node: Node) -> bool:
+    """Remove a net from the list in O(1) (swap-with-last)."""
+    pos = getattr(node, "_pos", -1)
+    if not (0 <= pos < len(nl.nodes)) or nl.nodes[pos] is not node:
+        return False               # already dropped (stale position)
+    last = nl.nodes[-1]
+    nl.nodes[pos] = last
+    last._pos = pos
+    nl.nodes.pop()
+    return True
 
 
 def _pin_of(inst: ModelInstance, pin: Union[int, str, Pin]) -> Pin:
@@ -71,3 +99,23 @@ def remove_from_node(nl: Netlist, inst: ModelInstance, pin: Union[int, str, Pin]
     if inst.mdef.device_class != DeviceClass.DIGITAL:
         node.num_of_analog_node -= 1
     nl.touch()
+
+
+def merge_node(nl: Netlist, keep: Node, absorb: Node) -> Node:
+    """Merge net ``absorb`` into ``keep`` (operation.h:251-259).
+
+    Ground wins: merging anything with the ground node yields ground.
+    """
+    if keep is absorb:
+        return keep
+    if absorb.is_ground and not keep.is_ground:
+        keep, absorb = absorb, keep
+    for p in list(absorb.pins):
+        p.node = keep
+        keep.pins.append(p)
+    keep.num_of_analog_node += absorb.num_of_analog_node
+    absorb.pins.clear()
+    absorb.num_of_analog_node = 0
+    drop_node(nl, absorb)
+    nl.touch()
+    return keep

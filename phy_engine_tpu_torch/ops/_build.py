@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles ``csrc/gj.cu`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, which ``ctypes`` loads — no PyTorch
-headers, so the build takes seconds.  The library is written, at first
-use, to ``build/phy_engine_tpu_torch/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the sources and flags so
-an edited source is rebuilt and an unchanged one is reused.
+``nvcc`` compiles each source of ``csrc/`` (``gj.cu``, ``turbo.cu``) for
+Hopper (``sm_90a``), one process per source, all started together, and
+links the objects into one shared library with a plain C interface,
+which ``ctypes`` loads — no PyTorch headers, so the build takes seconds.
+The library is written, at first use, to ``build/phy_engine_tpu_torch/``
+at the root of the checkout (listed in ``.gitignore``), named by a hash
+of the sources and flags so an edited source is rebuilt and an unchanged
+one is reused.  ``ptxas``'s report (registers, shared memory, spills of
+every kernel) is kept beside it as ``<library>.ptxas.txt``.
 
 :func:`load_library` raises when there is no CUDA device or no
 ``nvcc``; it never returns a stand-in.
@@ -24,10 +27,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gj.cu",)
+SOURCES = ("gj.cu", "turbo.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phy_engine_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LIB = None
 
@@ -65,19 +69,31 @@ def build() -> Path:
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / s) for s in SOURCES)]
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = tmp / (name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(str(obj))
+        logs = [proc.communicate()[0] for _cmd, proc in procs]
+        for (cmd, proc), out in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        lib = tmp / "lib.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
+        Path(str(so) + ".ptxas.txt").write_text("".join(logs))
+        os.replace(lib, so)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 
@@ -95,6 +111,10 @@ def load_library() -> ctypes.CDLL:
     lib.pe_gj_solve32.restype = i
     lib.pe_gj_inverse32.argtypes = [p, p, p, i, i, p]
     lib.pe_gj_inverse32.restype = i
+    lib.pe_turbo_smem_limit.argtypes = []
+    lib.pe_turbo_smem_limit.restype = i
+    lib.pe_turbo_run.argtypes = [p] * 13 + [i] * 13 + [p]
+    lib.pe_turbo_run.restype = i
     lib.pe_cuda_error_string.argtypes = [i]
     lib.pe_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -24,14 +24,14 @@ from ..engine.lower import AnalogIR
 
 def batch_params(ir: AnalogIR, n: int, jitter: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None,
-                 device=None) -> Dict[str, torch.Tensor]:
+                 device="cuda") -> Dict[str, torch.Tensor]:
     """Tile the IR's parameters into a batch of n circuits.
 
     ``jitter``: optional {family_id: {param_name: rel_sigma}}; each named
     column is multiplied by exp(sigma * N(0, 1)) drawn per lane and
     instance from ``generator`` (on the CPU, then moved to ``device``).
     """
-    base = analog.initial_params(ir)
+    base = analog.initial_params(ir, "cpu")
     out = {}
     for fam in ir.families:
         k = fam.mdef.id_name
@@ -46,18 +46,18 @@ def batch_params(ir: AnalogIR, n: int, jitter: Optional[Dict] = None,
     return out
 
 
-def batch_state(ir: AnalogIR, n: int, device=None):
+def batch_state(ir: AnalogIR, n: int, device="cuda"):
     st = analog.initial_state(ir, device)
     return {k: {v: a.expand((n,) + a.shape).clone() for v, a in d.items()}
             for k, d in st.items()}
 
 
-def batch_x(ir: AnalogIR, n: int, device=None) -> torch.Tensor:
+def batch_x(ir: AnalogIR, n: int, device="cuda") -> torch.Tensor:
     return torch.zeros((n, ir.n_unknowns), dtype=F64, device=device)
 
 
 def params_from_numpy(ir: AnalogIR, arrays: Dict[str, np.ndarray],
-                      device=None) -> Dict[str, torch.Tensor]:
+                      device="cuda") -> Dict[str, torch.Tensor]:
     """{family: (B, n_inst, n_params) array} -> the port's f64 tensors."""
     out = {}
     for fam in ir.families:
@@ -71,7 +71,7 @@ def params_from_numpy(ir: AnalogIR, arrays: Dict[str, np.ndarray],
 
 
 def state_from_numpy(ir: AnalogIR, arrays: Dict[str, Dict[str, np.ndarray]],
-                     device=None):
+                     device="cuda"):
     """{family: {var: (B, n_inst) array}} -> the port's f64 tensors."""
     out = {}
     for fam in ir.families:

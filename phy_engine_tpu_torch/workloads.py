@@ -1,4 +1,5 @@
-"""The slice's workload: the nonlinear random-link diode ladder.
+"""The port's workloads: the nonlinear random-link diode ladder (analog
+main path) and the synthesized RV32 core (digital main path).
 
 ``build_diode_ladder`` is the port's copy of the JAX package's
 ``__graft_entry__._build_diode_ladder`` (its output IR is held identical
@@ -10,16 +11,28 @@ node.  255 stages give 256 MNA unknowns (255 nodes + 1 source branch).
 batch with 5 % lognormal jitter on every R, advanced through fixed
 trapezoidal steps by the frozen-preconditioner Newton solver — the
 counterpart of the JAX package's ``bench.py`` headline.
+
+``build_rv32`` synthesizes the in-repo RV32I-subset core
+(``data/pe_rv32.v``: the ``pe_rv32`` template with the fib-checksum ROM,
+whose ``result`` bus ends at ``RV32_EXPECT``) to gates at ``-O1``, and
+``rv32_run`` clocks it through ``Circuit.digital_run`` /
+``digital_run_batch`` with ``bench_digital.py``'s schedule.
+``FP16_ADD_SRC`` is the combinational half-precision adder of the tests.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
 
 from .engine import analog
+from .engine.circuit import Circuit
 from .engine.environment import Environment
 from .engine.lower import lower_analog
+from .models.digital_gates import INPUT
 from .models.linear import CAPACITOR, RESISTANCE, VAC
 from .models.nonlinear import PN_JUNCTION
 from .netlist import operations as netops
@@ -89,3 +102,99 @@ def frozen_transient(batch: int = 256, steps: int = 100,
         ir, params, batch_x(ir, batch, device), batch_state(ir, batch, device),
         default_env(), 0.0, DT, steps, solver="frozen")
     return x, ok
+
+
+# ---------------------------------------------------------------------------
+# digital: the synthesized RV32 core
+# ---------------------------------------------------------------------------
+
+_DATA = Path(__file__).resolve().parent / "data"
+RV32_SRC = (_DATA / "pe_rv32.v").read_text()
+RV32_EXPECT = 4264
+FP16_ADD_SRC = (_DATA / "fp16_add.v").read_text()
+
+
+def synth_top(src: str, top: str, device="cuda", opt_level: int = 1,
+              inputs=None):
+    """Compile ``src``, elaborate module ``top`` and synthesize it into a
+    fresh :class:`Circuit` on ``device``.  One net per port bit; every
+    bit of the ports named in ``inputs`` (all input ports when None) is
+    driven by its own INPUT device at logic 0.
+
+    Returns (circuit, {port: [INPUT per bit]}, {port: [net per bit]},
+    SynthReport)."""
+    from .verilog import build_design, compile_source, elaborate, find_module
+    from .verilog.synth import SynthOptions, synthesize_to_netlist
+    design = build_design(compile_source(src))
+    topm = find_module(design, top)
+    inst = elaborate(design, topm)
+    c = Circuit(device=device)
+    nl = c.nl
+    pn = {p: [netops.create_node(nl) for _ in range(inst.signals[p].width)]
+          for p in topm.ports}
+    if inputs is None:
+        inputs = [p for p in topm.ports
+                  if getattr(inst.signals[p].decl, "direction", None)
+                  == "input"]
+    ins: Dict[str, List] = {}
+    for name in inputs:
+        ins[name] = []
+        for n in pn[name]:
+            m = netops.add_model(nl, INPUT, {"boolean": 0.0})
+            netops.add_to_node(nl, m, 0, n)
+            ins[name].append(m)
+    report = synthesize_to_netlist(nl, design, inst, pn,
+                                   SynthOptions(opt_level=opt_level))
+    return c, ins, pn, report
+
+
+class Rv32(NamedTuple):
+    circuit: Circuit
+    clk: object                 # INPUT device on clk
+    rst: object                 # INPUT device on rst_n
+    ports: Dict[str, List]      # port -> nets, LSB first
+    gates: int                  # synthesized gates + flip-flops
+    expect: int
+
+
+def build_rv32(device="cuda", opt_level: int = 1) -> Rv32:
+    """The RV32 core synthesized at ``opt_level`` into a Circuit."""
+    c, ins, pn, rep = synth_top(RV32_SRC, "pe_rv32", device, opt_level,
+                                inputs=("clk", "rst_n"))
+    return Rv32(c, ins["clk"][0], ins["rst_n"][0], pn,
+                rep.gate_count + rep.ff_count, RV32_EXPECT)
+
+
+def rv32_schedules(d: Rv32, cycles: int):
+    """(reset, body): settle plus a reset pulse, then ``cycles`` full
+    clocks with reset released (bench_digital.py's schedule)."""
+    reset = [{}, {d.clk: 1}, {d.clk: 0}, {d.rst: 1}]
+    body = []
+    for _ in range(cycles):
+        body += [{d.clk: 1, d.rst: 1}, {d.clk: 0, d.rst: 1}]
+    return reset, body
+
+
+def rv32_run(batch: int = 1, cycles: int = 200, device="cuda",
+             design: Rv32 = None):
+    """Reset the core and clock it ``cycles`` times, ``batch`` instances
+    (one ``digital_run`` when batch == 1, else ``digital_run_batch`` from
+    the common post-reset state).  Returns (result (batch,) int64, done
+    (batch,) int8): the ``result`` bus and the ``done`` code at the last
+    tick, lane 0."""
+    d = design if design is not None else build_rv32(device)
+    c = d.circuit
+    c.prepare().reset_state()
+    reset, body = rv32_schedules(d, cycles)
+    c.digital_run(reset)
+    if batch == 1:
+        tr = c.digital_run(body)
+        res = tr.bus_values(d.ports["result"])[-1:]
+        done = tr.node_codes(d.ports["done"][0])[-1:]
+        return res, done
+    codes = c.digital_run_batch([body] * batch,
+                                d.ports["result"] + d.ports["done"])
+    last = codes[:, -1].astype(np.int64)          # (B, 33)
+    bits = (last[:, :32] == 1).astype(np.int64)
+    res = (bits << np.arange(32, dtype=np.int64)).sum(axis=1)
+    return res, codes[:, -1, 32]

@@ -50,8 +50,8 @@ def case():
     p_np = {k: np.asarray(v) for k, v in pj.items()}
     s_np = jax.tree_util.tree_map(np.asarray, sj)
     return dict(ref=ref, ir=ir, env=env, pj=pj, sj=sj, x=x,
-                pt=params_from_numpy(ir, p_np),
-                st=state_from_numpy(ir, s_np))
+                pt=params_from_numpy(ir, p_np, device="cpu"),
+                st=state_from_numpy(ir, s_np, device="cpu"))
 
 
 def _rel(a, b, scale=None):
@@ -231,10 +231,11 @@ def test_rectifier_with_inactive_drive_slots_matches_jax(solver):
         ref, pj, jbatch.batch_x(ref, Bn), jbatch.batch_state(ref, Bn),
         g._env(), jnp.asarray(0.0), jnp.asarray(dt), steps, solver=solver,
         keep_trace=True)
-    pt = params_from_numpy(ir, {k: np.asarray(v) for k, v in pj.items()})
+    pt = params_from_numpy(ir, {k: np.asarray(v) for k, v in pj.items()},
+                           device="cpu")
     _x, _s, ok, tr = tan.transient_batched(
-        ir, pt, batch_x(ir, Bn), batch_state(ir, Bn), workloads.default_env(),
-        0.0, dt, steps, solver=solver, keep_trace=True)
+        ir, pt, batch_x(ir, Bn, "cpu"), batch_state(ir, Bn, "cpu"),
+        workloads.default_env(), 0.0, dt, steps, solver=solver, keep_trace=True)
     assert bool(np.asarray(okj).all()) and bool(ok.all())
     trj = np.asarray(trj)
     assert np.abs(trj).max() > 1.0          # the source swung up

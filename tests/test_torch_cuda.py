@@ -1,13 +1,14 @@
 """CUDA tests of the PyTorch port: the hand-written kernels against their
-plain torch versions, and the small frozen transient on the card against
-the CPU path.  Marked ``cuda``; each skips on a host without a CUDA
+plain torch versions, the small frozen transient on the card against
+the CPU path, and RV32 through Circuit.digital_run on the card.  Marked ``cuda``; each skips on a host without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs
 on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: kernels ``gj_cases.TOL`` (1e-4) relative to max|x| of the
-lane; the transient 1e-6 relative to max|trace|.
+lane; the transient 1e-6 relative to max|trace|; the turbo kernel none
+(bit-identical: exact integer logic).
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from phy_engine_tpu_torch import workloads
+from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
 from phy_engine_tpu_torch.ops import gj
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
@@ -74,3 +76,40 @@ def test_frozen_transient_card_matches_cpu(cuda):
         traces.append(tr.cpu())
     rel = (traces[1] - traces[0]).abs().max() / traces[0].abs().max()
     assert rel <= 1e-6, float(rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "global"])
+def test_turbo_kernel_matches_plain_fp16(cuda, placement):
+    """Random V/U words with X and Z lanes, B = 4, 16 ticks, in both
+    state placements; full history and a watch list."""
+    plan, st0, FV, FU = turbo_cases.fp16_case(4, 16, seed=5, device=cuda)
+    watch = list(range(0, plan.S, 7))
+    for w in (None, watch):
+        before = turbo.run_turbo.launches
+        hv, hu = turbo.run_turbo(plan, st0, FV, FU, watch=w,
+                                 placement=placement)
+        pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU),
+                                       None if w is None else
+                                       torch.tensor(w, device=cuda))
+        torch.cuda.synchronize()
+        assert turbo.run_turbo.launches == before + 1
+        assert torch.equal(hv, pv) and torch.equal(hu, pu)
+
+
+@pytest.mark.cuda
+def test_turbo_kernel_matches_plain_rv32(cuda):
+    plan, st0, FV, FU = turbo_cases.rv32_case(2, 8, device=cuda)
+    hv, hu = turbo.run_turbo(plan, st0, FV, FU)
+    pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU))
+    torch.cuda.synchronize()
+    assert torch.equal(hv, pv) and torch.equal(hu, pu)
+
+
+@pytest.mark.cuda
+def test_rv32_digital_run_on_the_card(cuda):
+    d = workloads.build_rv32(device=cuda)
+    res, done = workloads.rv32_run(1, 200, design=d)
+    assert int(res[0]) == d.expect == 4264 and int(done[0]) == 1
+    res, done = workloads.rv32_run(4, 200, design=d)
+    assert (res == 4264).all() and (done == 1).all()

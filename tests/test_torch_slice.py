@@ -43,10 +43,11 @@ def _run_both(stages, B, steps, solver):
         ref, pj, jbatch.batch_x(ref, B), jbatch.batch_state(ref, B), env,
         jnp.asarray(0.0, jnp.float64), jnp.asarray(DT, jnp.float64), steps,
         solver=solver, keep_trace=True)
-    pt = params_from_numpy(ir, {k: np.asarray(v) for k, v in pj.items()})
+    pt = params_from_numpy(ir, {k: np.asarray(v) for k, v in pj.items()},
+                           device="cpu")
     _x, _st, ok, tr = tan.transient_batched(
-        ir, pt, batch_x(ir, B), batch_state(ir, B), workloads.default_env(),
-        0.0, DT, steps, solver=solver, keep_trace=True)
+        ir, pt, batch_x(ir, B, "cpu"), batch_state(ir, B, "cpu"),
+        workloads.default_env(), 0.0, DT, steps, solver=solver, keep_trace=True)
     return np.asarray(okj), np.asarray(trj), ok.numpy(), tr.numpy()
 
 

@@ -18,7 +18,8 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               to max|x| of the lane) of the plain version and of float64
               numpy; a singular lane non-finite in both.  Times both, and
               torch.linalg.inv / torch.linalg.solve as the library call,
-              at the main path's shape (CUDA events).
+              at the main path's shape (CUDA events); bound_ms from the
+              function's least work (gj_bound).
 3. ladder   — the 63-stage diode ladder, B = 6, 25 frozen-Newton steps,
               on the card and on the CPU (plain kernels) with the same
               params: traces within 1e-6 of max|trace|.
@@ -33,8 +34,10 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               (a) RV32 from reset, 8 ticks, B = 2; (b) the fp16 adder with
               random V/U words (X and Z lanes included), 16 ticks, B = 4,
               full history and a watch list; (c) case (b) with the state
-              forced into the global-memory placement.  Times kernel and
-              plain version at (a) (CUDA events).
+              forced into the global-memory placement; (d) RV32, B = 128,
+              each instance from its own random V/U start words, 8 ticks,
+              watching phase 8's signals.  Times kernel and plain version
+              at (a) (CUDA events); bound_ms from (a)'s inputs.
 7. digital main path — Circuit.digital_run on the RV32 core (22,051
               gates + 640 flip-flops at -O1), one instance, reset plus 200
               clocks (404 ticks): result = 4264 and done = 1 on lane 0 of
@@ -81,16 +84,13 @@ TURBO = dict(name="turbo_tick", wrapper=turbo.run_turbo,
              replaces="phy_engine_tpu/digital/turbo.py:665")
 TRACE_TOL = 1e-6
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, FP32 on
-# the CUDA cores (an FMA counts two), and 32-bit integer logic on the CUDA
-# cores (132 SMs x 128 lanes x 1.98 GHz, one operation per lane per clock)
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and FP32
+# on the CUDA cores (an FMA counts two).  32-bit bitwise logic: 64 results
+# per SM per clock on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table), 132 SMs at 1.98 GHz
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
-INT32_OPS = 132 * 128 * 1.98e9
-# int32 operations of one gate evaluation on a V/U plane pair: a 4-state
-# 2-input gate needs at least 8 three-input logic operations (operand
-# and output inversions, the core's V and U planes), a flip-flop 16
-GATE_OPS, FF_OPS = 8, 16
+INT32_OPS = 132 * 64 * 1.98e9
 
 
 def check(cond, what):
@@ -122,16 +122,16 @@ def bound(nbytes, ops, rate):
 
 
 def gj_bound(name, B, n):
-    """Gauss-Jordan as the kernels run it: at pivot k every other row
-    (n - 1) is updated in the columns after k — 2n - k - 1 of [A | I]
-    for the inverse, n - k of [A | b] for the solve — one multiply and
-    one subtract each, plus n divisions for the factors.  Bytes: A (and
-    b) read once, the result written once, f32."""
-    cols = [(2 * n - k - 1) if name == "gj_inverse32" else (n - k)
-            for k in range(n)]
-    flops = B * sum(2 * (n - 1) * c + n for c in cols)
-    words = B * (2 * n * n if name == "gj_inverse32" else n * n + 2 * n)
-    return bound(4 * words, flops, FP32_FLOPS)
+    """The least work of the function, not of the kernels' algorithm:
+    inverting an n x n matrix takes 2n^3 flops (LU, then the inverse from
+    its factors: LAPACK's getrf + getri), solving one system (2/3)n^3 +
+    2n^2 (LU, then one right-hand side through both triangles: getrf +
+    getrs).  Bytes: A (and b) read once, the result written once, f32."""
+    if name == "gj_inverse32":
+        flops, words = 2 * n ** 3, 2 * n * n
+    else:
+        flops, words = 2 * n ** 3 / 3 + 2 * n * n, n * n + 2 * n
+    return bound(4 * B * words, B * flops, FP32_FLOPS)
 
 
 def numpy_ref(name, A, b):
@@ -207,30 +207,56 @@ def phase2_kernels(dev):
     return results
 
 
+def comb_slot_ops(tab, n):
+    """(valid slots, least logic instructions) of a combinational table's
+    first n chunks.  A three-input logic instruction (LOP3) combines at
+    most three words into one, so a word that depends on m words takes
+    at least ceil((m - 1) / 2) of them.  A two-operand gate's V word
+    depends on both operands' V and U words: 2.  A one-operand gate's
+    (NOT, YES: the operand twice) on its operand's two: 1.  IS_UNKNOWN's
+    V word is its operand's U word: 0."""
+    t = tab[:, :n * turbo.CHUNK]
+    valid = t[turbo._R_VALID] != 0
+    two = ((t[turbo._R_AHI] != t[turbo._R_BHI])
+           | (t[turbo._R_ALO] != t[turbo._R_BLO]))
+    unknown = t[turbo._R_CORE0 + 5] != 0
+    ops = np.where(two, 2, np.where(unknown, 0, 1))
+    return int(valid.sum()), int(ops[valid].sum())
+
+
 def turbo_bound(plan, B, T, width):
-    """Bytes: the chunk tables, the start planes and the forced planes
-    read once, the history written once.  Operations: every valid gate
-    and flip-flop slot of the plan, once per tick and instance."""
-    tab_words = (plan.cone_tab.size + plan.full_tab.size + plan.ff_tab.size
-                 + 2 * plan.nf_pad)
-    words = tab_words + B * (2 * plan.K + 2 * T * plan.nf_pad
-                             + 2 * T * width)
-    gates = (int((plan.cone_tab[9, :plan.n_cone * 128] != 0).sum())
-             + int((plan.full_tab[9, :plan.n_full * 128] != 0).sum()))
-    ffs = int((plan.ff_tab[10] != 0).sum())
-    ops = B * T * (gates * GATE_OPS + ffs * FF_OPS)
+    """Bytes: the table rows of the valid gate slots (16 int32 words
+    each) and flip-flop slots (12), the forced slots' indices, the start
+    planes and the forced planes read once, the history written once;
+    padding slots are left out.  Operations (see comb_slot_ops): each
+    gate slot's least count, and per flip-flop 4 with its reset enabled
+    (the new q's V word depends on 9 words: V of q; V and U of d, clock,
+    last clock and reset), else 3 (7 words); once per tick and
+    instance."""
+    g_cone, o_cone = comb_slot_ops(plan.cone_tab, plan.n_cone)
+    g_full, o_full = comb_slot_ops(plan.full_tab, plan.n_full)
+    ff = plan.ff_tab
+    ff_valid = ff[turbo._F_VALID] != 0
+    ffs = int(ff_valid.sum())
+    ff_ops = int(np.where(ff[turbo._F_RSTEN] != 0, 4, 3)[ff_valid].sum())
+    tab_words = 16 * (g_cone + g_full) + 12 * ffs + 2 * plan.nf
+    words = tab_words + B * (2 * plan.K + 2 * T * plan.nf + 2 * T * width)
+    ops = B * T * (o_cone + o_full + ff_ops)
     return bound(4 * words, ops, INT32_OPS)
 
 
-def turbo_same(case, placement=None, watch=None):
-    """Kernel and plain version on one case: bit-identical planes."""
+def turbo_err(case, force_global=False, watch=None):
+    """Kernel against plain version on one case: the largest absolute
+    difference of any history word of either plane (0 when
+    bit-identical)."""
     plan, st0, FV, FU = case
     w = None if watch is None else torch.tensor(watch, device=st0.device)
     hv, hu = turbo.run_turbo(plan, st0, FV, FU, watch=watch,
-                             placement=placement)
+                             _force_global=force_global)
     pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU), w)
     torch.cuda.synchronize()
-    return torch.equal(hv, pv) and torch.equal(hu, pu)
+    return int(max((hv.long() - pv.long()).abs().max(),
+                   (hu.long() - pu.long()).abs().max()))
 
 
 def turbo_kernel_ms(dev, rv32, B, ticks, watch=None):
@@ -242,22 +268,42 @@ def turbo_kernel_ms(dev, rv32, B, ticks, watch=None):
                    3)
 
 
+def rv32_watch(rv32):
+    """The signals phase 8 watches: the result bus and done."""
+    eng = rv32.circuit.prepare()
+    return [eng.ir.node_sig[id(n)]
+            for n in rv32.ports["result"] + rv32.ports["done"]]
+
+
 def phase6_turbo(dev, rv32):
-    r = {"max_abs_err": 0}
+    errs = []
+
+    def same(case, what, force_global=False, watch=None):
+        errs.append(turbo_err(case, force_global, watch))
+        check(errs[-1] == 0, f"turbo {what}: kernel != plain, max abs "
+              f"err {errs[-1]}")
+
     case_a = turbo_cases.rv32_case(2, 8, dev, design=rv32)
-    check(turbo_same(case_a), "turbo (a) RV32 B=2 T=8: kernel != plain")
+    same(case_a, "(a) RV32 B=2 T=8")
     say(6, "(a) RV32 from reset, B=2, 8 ticks, full history: "
         "kernel bit-identical to plain")
     case_b = turbo_cases.fp16_case(4, 16, seed=6, device=dev)
     watch = list(range(0, case_b[0].S, 5))
-    for placement, tag in (("shared", "b"), ("global", "c")):
+    for force_global, tag in ((False, "b"), (True, "c")):
+        placement = "global" if force_global else "shared"
         for w in (None, watch):
-            check(turbo_same(case_b, placement, w),
-                  f"turbo ({tag}) fp16 {placement} watch={w is not None}: "
-                  "kernel != plain")
+            same(case_b, f"({tag}) fp16 {placement} watch={w is not None}",
+                 force_global, w)
         say(6, f"({tag}) fp16 adder, random V/U with X/Z lanes, B=4, 16 "
             f"ticks, {placement} placement, full history and watch: "
             "bit-identical")
+    watch8 = rv32_watch(rv32)
+    case_d = turbo_cases.rv32_case(128, 8, dev, design=rv32, seed=8)
+    same(case_d, "(d) RV32 B=128 T=8 watch", watch=watch8)
+    say(6, f"(d) RV32, B=128 each from its own random V/U start words "
+        f"(X/Z lanes), 8 ticks, watching phase 8's {len(watch8)} signals: "
+        "bit-identical")
+    r = {"max_abs_err": max(errs)}
     plan, st0, FV, FU = case_a
     FVp, FUp = plan.pad_forced(FV, FU)
     t = [time_ms(lambda: turbo.run_turbo_plain(plan, st0, FVp, FUp), 1),
@@ -422,9 +468,7 @@ def main():
         f"aggregate {rv32.gates * (B * 2 * cycles + 4) / sec:.4e} "
         f"gate-evals/s on {smi}; turbo launches {n8}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    eng = rv32.circuit.prepare()
-    watch = [eng.ir.node_sig[id(n)]
-             for n in rv32.ports["result"] + rv32.ports["done"]]
+    watch = rv32_watch(rv32)
     k_ms = turbo_kernel_ms(dev, rv32, B, ticks, watch)
     say(8, f"the kernel alone, B={B} x {ticks} ticks, watching "
         f"{len(watch)} signals: {k_ms:.2f} ms "

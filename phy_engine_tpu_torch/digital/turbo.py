@@ -47,7 +47,7 @@ Everything a synthesized netlist produces qualifies.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -536,7 +536,7 @@ def _check(plan, state0, FV, FU):
 
 
 def run_turbo(plan: TurboPlan, state0, FV, FU, watch=None,
-              placement: Optional[str] = None):
+              _force_global: bool = False):
     """Run T ticks of B independent instances of the design.
 
     ``state0``: (B, 2, K) int32 start planes (:meth:`TurboPlan.pack_state`
@@ -545,10 +545,10 @@ def run_turbo(plan: TurboPlan, state0, FV, FU, watch=None,
     sequence of signal indices to record.  Returns (hv, hu) int32 of shape
     (B, T, K) or (B, T, len(watch)) on ``state0``'s device.
 
-    ``placement`` (CUDA only): where the kernel keeps each instance's
-    planes — ``"shared"`` (on-chip shared memory), ``"global"``
-    (a per-instance scratch in device memory), or None: shared when they
-    fit in a block's shared memory, else global."""
+    On the card the kernel keeps each instance's planes in shared memory
+    when they fit a block's, else in a per-instance scratch in device
+    memory; ``_force_global`` takes the latter for any design, so that
+    the card tests can hold both placements against the plain version."""
     _check(plan, state0, FV, FU)
     dev = state0.device
     w = None
@@ -562,7 +562,7 @@ def run_turbo(plan: TurboPlan, state0, FV, FU, watch=None,
     if dev.type == "cpu":
         return run_turbo_plain(plan, state0, FVp, FUp, w)
     hv, hu = _launch(plan, state0.contiguous(), FVp.contiguous(),
-                     FUp.contiguous(), w, placement)
+                     FUp.contiguous(), w, _force_global)
     run_turbo.launches += 1
     return hv, hu
 
@@ -570,7 +570,7 @@ def run_turbo(plan: TurboPlan, state0, FV, FU, watch=None,
 run_turbo.launches = 0
 
 
-def _launch(plan, state0, FVp, FUp, w, placement):
+def _launch(plan, state0, FVp, FUp, w, force_global):
     from ..ops._build import load_library
     lib = load_library()
     dev = state0.device
@@ -584,18 +584,11 @@ def _launch(plan, state0, FVp, FUp, w, placement):
         if limit < 0:
             raise RuntimeError(f"pe_turbo_smem_limit failed: CUDA error "
                                f"{-limit}")
-        if placement is None:
-            placement = "shared" if 4 * words <= limit else "global"
-        if placement == "shared":
-            if 4 * words > limit:
-                raise ValueError(f"state of {4 * words} B does not fit the "
-                                 f"block's {limit} B of shared memory")
-            scratch = hv                  # unused by the shared placement
-        elif placement == "global":
+        in_global = force_global or 4 * words > limit
+        if in_global:
             scratch = torch.empty((B, words), dtype=torch.int32, device=dev)
         else:
-            raise ValueError(f"placement must be 'shared', 'global' or "
-                             f"None, got {placement!r}")
+            scratch = hv                  # unused by the shared placement
         tabs = plan.tables(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         wp = 0 if w is None else w.data_ptr()
@@ -610,7 +603,7 @@ def _launch(plan, state0, FVp, FUp, w, placement):
             plan.full_tab.shape[1], plan.n_full,
             plan.ff_tab.shape[1], len(plan.ff_ranges),
             plan.max_seg_chunks, width,
-            1 if placement == "global" else 0, ctypes.c_void_p(stream))
+            1 if in_global else 0, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"pe_turbo_run failed to launch: CUDA error {err} "
                            f"({lib.pe_cuda_error_string(err).decode()})")

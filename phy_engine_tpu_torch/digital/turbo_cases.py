@@ -45,10 +45,12 @@ def fp16_case(B: int, T: int, seed: int, device):
             as_int32(FU).to(device))
 
 
-def rv32_case(B: int, T: int, device, design=None):
-    """The RV32 core from its all-X start state through ``T`` ticks of
-    ``bench_digital.py``'s schedule (reset pulse, then clocks), every
-    instance alike."""
+def rv32_case(B: int, T: int, device, design=None, seed=None):
+    """The RV32 core through ``T`` ticks of ``bench_digital.py``'s
+    schedule (reset pulse, then clocks).  With ``seed`` None every
+    instance starts from the all-X state; with a seed each instance
+    starts from its own random V/U words, X and Z lanes included, in
+    every signal slot."""
     d = design if design is not None else workloads.build_rv32("cpu")
     c = d.circuit
     eng = c.prepare()
@@ -56,7 +58,12 @@ def rv32_case(B: int, T: int, device, design=None):
     reset, body = workloads.rv32_schedules(d, (T + 1) // 2)
     _e, fs, FV, FU = c._compile_schedule((reset + body)[:T])
     plan = eng.plan(fs)
-    st = torch.from_numpy(plan.pack_state(eng.sv, eng.su, eng.seq_state))
-    return (plan, st[None].expand(B, 2, plan.K).contiguous().to(device),
+    st = np.repeat(plan.pack_state(eng.sv, eng.su, eng.seq_state)[None], B,
+                   axis=0)
+    if seed is not None:
+        v, u = _words(np.random.default_rng(seed), (B, plan.trash), True)
+        st[:, 0, :plan.trash] = v.view(np.int32)
+        st[:, 1, :plan.trash] = u.view(np.int32)
+    return (plan, torch.from_numpy(st).to(device),
             as_int32(np.repeat(FV[None], B, axis=0)).to(device),
             as_int32(np.repeat(FU[None], B, axis=0)).to(device))

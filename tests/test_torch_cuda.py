@@ -79,8 +79,9 @@ def test_frozen_transient_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("placement", ["shared", "global"])
-def test_turbo_kernel_matches_plain_fp16(cuda, placement):
+@pytest.mark.parametrize("force_global", [False, True],
+                         ids=["shared", "global"])
+def test_turbo_kernel_matches_plain_fp16(cuda, force_global):
     """Random V/U words with X and Z lanes, B = 4, 16 ticks, in both
     state placements; full history and a watch list."""
     plan, st0, FV, FU = turbo_cases.fp16_case(4, 16, seed=5, device=cuda)
@@ -88,7 +89,7 @@ def test_turbo_kernel_matches_plain_fp16(cuda, placement):
     for w in (None, watch):
         before = turbo.run_turbo.launches
         hv, hu = turbo.run_turbo(plan, st0, FV, FU, watch=w,
-                                 placement=placement)
+                                 _force_global=force_global)
         pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU),
                                        None if w is None else
                                        torch.tensor(w, device=cuda))

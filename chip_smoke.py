@@ -9,25 +9,33 @@ Phases (each prints one line; any failure raises, exit code non-zero):
 0. device   — a CUDA card is required (no CPU fallback); its name and
               power limit from nvidia-smi.
 1. build    — nvcc builds the hand-written kernels of
-              phy_engine_tpu_torch/ops/csrc (gj.cu, turbo.cu; one nvcc per
-              source, all at once; into build/, at first use), and prints
-              ptxas's register / shared-memory lines for each kernel.
-2. kernels  — each GJ kernel against its plain torch version on the card
-              at (B, n) = (256, 256) and (8, 128): random, MNA-border and
-              singular-lane systems, within gj_cases.TOL (1e-4 relative
-              to max|x| of the lane) of the plain version and of float64
-              numpy; a singular lane non-finite in both.  Times both, and
-              torch.linalg.inv / torch.linalg.solve as the library call,
-              at the main path's shape (CUDA events); bound_ms from the
-              function's least work (gj_bound).
+              phy_engine_tpu_torch/ops/csrc (gj.cu, lu_block.cu, turbo.cu;
+              one nvcc per source, all at once; into build/, at first
+              use), and prints ptxas's register / shared-memory lines for
+              each kernel.
+2. kernels  — each inverse / solve kernel (gj_inverse32, gj_solve32,
+              lu_block_inverse32) against its plain torch version on the
+              card at (B, n) = (256, 256) and (8, 128): random, MNA-border,
+              singular-lane and block-singular-lane systems, within
+              gj_cases.TOL (1e-4 relative to max|x| of the lane) of the
+              plain version and of float64 numpy; a lane the kernel cannot
+              invert (singular for all three, block-singular for the
+              blocked inverse) non-finite in both.  Times each kernel, its
+              plain version and torch.linalg.inv / torch.linalg.solve as
+              the library call at the main path's shape (CUDA events);
+              bound_ms from the function's least work (gj_bound).  Then
+              lu_block_inverse32 at bench_mxu.py's (64, 512) and
+              (16, 1024) on random systems, against its plain version and
+              numpy, timed beside gj_inverse32 and torch.linalg.inv.
 3. ladder   — the 63-stage diode ladder, B = 6, 25 frozen-Newton steps,
               on the card and on the CPU (plain kernels) with the same
-              params: traces within 1e-6 of max|trace|.
-4. determinism — phase 3 on the card again: bit-identical.
+              params: traces within 1e-6 of max|trace|; once per refactor
+              (inv = "gj" and "block").
+4. determinism — phase 3 on the card again, per refactor: bit-identical.
 5. main path — workloads.frozen_transient: 255 stages (256 unknowns),
               B = 256, 100 steps of 50 ns.  Every lane converges, x is
               finite; lanes 0-3 agree with a CPU run of those lanes to
-              1e-6; circuit-steps/s (CUDA events); both kernels' launch
+              1e-6; circuit-steps/s (CUDA events); both GJ kernels' launch
               counts over this run are > 0.
 6. turbo    — the whole-tick digital kernel against its plain torch
               version, bit-identical on every slot, tick, lane and plane:
@@ -47,6 +55,12 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               from the common post-reset state, watching result and done:
               every instance ends with 4264; aggregate gate-evals/s and
               peak device memory.
+9. block path — phase 5 with the blocked refactor,
+              workloads.frozen_transient(..., inv="block"): every lane
+              converges, x is finite; lu_block_inverse32 launched and
+              gj_inverse32 never; lanes 0-3 agree with a CPU run of those
+              lanes (inv="block") to 1e-6, and the final x with phase 5's
+              to 1e-6 of max|x|; circuit-steps/s, launches, peak memory.
 
 Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -63,22 +77,34 @@ import torch
 from phy_engine_tpu_torch import workloads
 from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
-from phy_engine_tpu_torch.ops import _build, gj
+from phy_engine_tpu_torch.ops import _build, gj, lu_block
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
 from phy_engine_tpu_torch.parallel.batch import batch_params, batch_state, batch_x
 
+# inverse: the function is A -> A^-1 (else (A, b) -> x); fails_on: the
+# gj_cases systems whose bad lane the kernel must leave non-finite
 KERNELS = {
     "gj_inverse32": dict(
         wrapper=gj.gj_inverse32, plain=gj.gj_inverse32_plain,
         library=torch.linalg.inv,
         source="phy_engine_tpu_torch/ops/csrc/gj.cu",
-        replaces="phy_engine_tpu/ops/gj.py:364"),
+        replaces="phy_engine_tpu/ops/gj.py:364",
+        inverse=True, fails_on=("singular",)),
     "gj_solve32": dict(
         wrapper=gj.gj_solve32, plain=gj.gj_solve32_plain,
         library=lambda A, b: torch.linalg.solve(A, b),
         source="phy_engine_tpu_torch/ops/csrc/gj.cu",
-        replaces="phy_engine_tpu/ops/gj.py:465"),
+        replaces="phy_engine_tpu/ops/gj.py:465",
+        inverse=False, fails_on=("singular",)),
+    "lu_block_inverse32": dict(
+        wrapper=lu_block.lu_block_inverse32,
+        plain=lu_block.lu_block_inverse32_plain,
+        library=torch.linalg.inv,
+        source="phy_engine_tpu_torch/ops/csrc/lu_block.cu",
+        replaces="phy_engine_tpu/ops/lu_block.py:148",
+        inverse=True, fails_on=("singular", "block_singular")),
 }
+CASES = ("random", "mna_border", "singular", "block_singular")
 TURBO = dict(name="turbo_tick", wrapper=turbo.run_turbo,
              source="phy_engine_tpu_torch/ops/csrc/turbo.cu",
              replaces="phy_engine_tpu/digital/turbo.py:665")
@@ -112,7 +138,7 @@ def smi_line():
 def run_kernel(name, A, b, plain=False, library=False):
     f = KERNELS[name]["library" if library else "plain" if plain
                       else "wrapper"]
-    return f(A) if name == "gj_inverse32" else f(A, b)
+    return f(A) if KERNELS[name]["inverse"] else f(A, b)
 
 
 def bound(nbytes, ops, rate):
@@ -127,7 +153,7 @@ def gj_bound(name, B, n):
     its factors: LAPACK's getrf + getri), solving one system (2/3)n^3 +
     2n^2 (LU, then one right-hand side through both triangles: getrf +
     getrs).  Bytes: A (and b) read once, the result written once, f32."""
-    if name == "gj_inverse32":
+    if KERNELS[name]["inverse"]:
         flops, words = 2 * n ** 3, 2 * n * n
     else:
         flops, words = 2 * n ** 3 / 3 + 2 * n * n, n * n + 2 * n
@@ -136,7 +162,7 @@ def gj_bound(name, B, n):
 
 def numpy_ref(name, A, b):
     A64 = A.astype(np.float64)
-    if name == "gj_inverse32":
+    if KERNELS[name]["inverse"]:
         return np.linalg.inv(A64)
     return np.linalg.solve(A64, b.astype(np.float64)[..., None])[..., 0]
 
@@ -154,40 +180,47 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def hold(name, A, b, case, Ad, bd):
+    """One kernel against its plain version and float64 numpy on one
+    system; returns (rel err vs plain, vs numpy, max abs err vs plain)."""
+    B = len(A)
+    s = singular_lane(B)
+    bad = case in KERNELS[name]["fails_on"]
+    good = [i for i in range(B) if not bad or i != s]
+    k = run_kernel(name, Ad, bd)
+    p = run_kernel(name, Ad, bd, plain=True)
+    torch.cuda.synchronize()
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    what = f"{name} {case} B={B} n={A.shape[1]}"
+    check(np.isfinite(k[good]).all(), f"{what}: non-finite")
+    e_plain = lane_rel_err(k[good], p[good]).max()
+    e_np = lane_rel_err(k[good], numpy_ref(name, A[good], b[good])).max()
+    check(e_plain <= TOL, f"{what}: kernel vs plain {e_plain:.3e} > {TOL}")
+    check(e_np <= TOL, f"{what}: kernel vs numpy {e_np:.3e} > {TOL}")
+    if bad:
+        check(not np.isfinite(k[s]).all(), f"{what}: bad lane finite in "
+              "the kernel")
+        check(not np.isfinite(p[s]).all(), f"{what}: bad lane finite in "
+              "the plain version")
+    return e_plain, e_np, float(np.abs(k[good] - p[good]).max())
+
+
 def phase2_kernels(dev):
     results = {k: {"max_abs_err": 0.0} for k in KERNELS}
     for B, n in ((256, 256), (8, 128)):
-        for case in ("random", "mna_border", "singular"):
+        for case in CASES:
             A, b = system(case, B, n, seed=B + n)
             Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
-            good = [i for i in range(len(A)) if case != "singular"
-                    or i != singular_lane(len(A))]
             for name in KERNELS:
-                k = run_kernel(name, Ad, bd)
-                p = run_kernel(name, Ad, bd, plain=True)
-                torch.cuda.synchronize()
-                k, p = k.cpu().numpy(), p.cpu().numpy()
-                check(np.isfinite(k[good]).all(), f"{name} {case} non-finite")
-                e_plain = lane_rel_err(k[good], p[good]).max()
-                e_np = lane_rel_err(k[good], numpy_ref(name, A[good], b[good])).max()
-                check(e_plain <= TOL, f"{name} {case} B={B} n={n}: "
-                      f"kernel vs plain {e_plain:.3e} > {TOL}")
-                check(e_np <= TOL, f"{name} {case} B={B} n={n}: "
-                      f"kernel vs numpy {e_np:.3e} > {TOL}")
-                if case == "singular":
-                    s = singular_lane(len(A))
-                    check(not np.isfinite(k[s]).all(),
-                          f"{name}: singular lane finite in the kernel")
-                    check(not np.isfinite(p[s]).all(),
-                          f"{name}: singular lane finite in the plain version")
+                e_plain, e_np, err = hold(name, A, b, case, Ad, bd)
                 if (B, n) == (256, 256):
-                    err = float(np.abs(k[good] - p[good]).max())
                     r = results[name]
                     r["max_abs_err"] = max(r["max_abs_err"], err)
                 say(2, f"{name} B={B} n={n} {case}: rel err vs plain "
                     f"{e_plain:.3e}, vs numpy {e_np:.3e}")
-    # time both versions at the main path's shape: plain, kernel, kernel,
-    # plain; then the library call that computes the same function
+    # time each kernel and its plain version at the main path's shape:
+    # plain, kernel, kernel, plain; then the library call that computes
+    # the same function
     A, b = system("random", 256, 256, seed=1)
     Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
     for name, r in results.items():
@@ -204,6 +237,22 @@ def phase2_kernels(dev):
             f"plain {t[0]:.4f} / {t[3]:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+    # the blocked inverse at bench_mxu.py's larger shapes, beside the GJ
+    # inverse (one timed rep at n = 1024: its n serial full-width steps
+    # run on only B SMs) and the library call
+    name = "lu_block_inverse32"
+    for B, n, gj_reps in ((64, 512, 3), (16, 1024, 1)):
+        A, b = system("random", B, n, seed=B + n)
+        Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
+        e_plain, e_np, _err = hold(name, A, b, "random", Ad, bd)
+        t_k = time_ms(lambda: run_kernel(name, Ad, bd), 10)
+        t_gj = time_ms(lambda: run_kernel("gj_inverse32", Ad, bd), gj_reps)
+        t_lib = time_ms(lambda: run_kernel(name, Ad, bd, library=True), 10)
+        b_ms, b_by = gj_bound(name, B, n)
+        say(2, f"{name} B={B} n={n} random: rel err vs plain {e_plain:.3e}, "
+            f"vs numpy {e_np:.3e}; kernel {t_k:.4f} ms, gj_inverse32 "
+            f"{t_gj:.4f} ms, library {t_lib:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
     return results
 
 
@@ -321,13 +370,61 @@ def phase6_turbo(dev, rv32):
     return r
 
 
-def ladder_run(ir, params, B, steps, device):
+def ladder_run(ir, params, B, steps, device, inv):
     x, _st, ok, tr = analog.transient_batched(
         ir, {k: v.to(device) for k, v in params.items()},
         batch_x(ir, B, device), batch_state(ir, B, device),
         workloads.default_env(), 0.0, workloads.DT, steps, solver="frozen",
-        keep_trace=True)
+        keep_trace=True, inv=inv)
     return x, ok, tr
+
+
+def frozen_path(phase, dev, smi, inv, launched, idle):
+    """The analog main path at full width with the refactor ``inv``: the
+    255-stage ladder, B = 256, 100 steps, after a 3-step warm-up, every
+    kernel's count set to 0 just before and read just after.  Checks
+    that every lane converges, x is finite, each kernel of ``launched``
+    ran and none of ``idle`` did, and lanes 0-3 agree with a CPU run of
+    those lanes.  Returns (x, launches)."""
+    B, steps, stages, seed = 256, 100, workloads.N_STAGES, 0
+    workloads.frozen_transient(batch=B, steps=3, stages=stages, device=dev,
+                               seed=seed, inv=inv)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    x, ok = workloads.frozen_transient(batch=B, steps=steps, stages=stages,
+                                       device=dev, seed=seed, inv=inv)
+    end.record()
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
+    sec = start.elapsed_time(end) / 1e3
+    what = f"frozen path (inv={inv})"
+    check(tuple(x.shape) == (B, stages + 1), f"{what}: x shape {tuple(x.shape)}")
+    check(bool(ok.all()), f"{what}: {int((~ok).sum())} lanes failed")
+    check(bool(torch.isfinite(x).all()), f"{what}: non-finite x")
+    for name in launched:
+        check(launches[name] > 0, f"{what} never launched {name}")
+    for name in idle:
+        check(launches[name] == 0, f"{what} launched {name} "
+              f"{launches[name]} times")
+    # reference: lanes 0-3 alone through the CPU path
+    ir = workloads.build_diode_ladder(stages)
+    p_all = batch_params(ir, B, jitter={"R": {"r": workloads.R_JITTER}},
+                         generator=torch.Generator().manual_seed(seed))
+    p4 = {k: v[:4].clone() for k, v in p_all.items()}
+    x4, ok4, _tr = ladder_run(ir, p4, 4, steps, "cpu", inv)
+    rel = float((x[:4].cpu() - x4).abs().max() / x4.abs().max())
+    check(bool(ok4.all()) and rel <= TRACE_TOL,
+          f"{what}: lanes 0-3 vs CPU run {rel:.3e} > {TRACE_TOL}")
+    say(phase, f"{stages}-stage ladder B={B} {steps} steps, inv={inv}: "
+        f"{sec:.3f} s, {B * steps / sec:.1f} circuit-steps/s on {smi}; "
+        f"launches {launches}; lanes 0-3 vs CPU {rel:.3e}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return x, launches
 
 
 def main():
@@ -356,59 +453,29 @@ def main():
     # phase 2: each kernel against its plain version
     results = phase2_kernels(dev)
 
-    # phase 3: small ladder, card against CPU
+    # phases 3-4: small ladder, card against CPU, then the card again
     ir = workloads.build_diode_ladder(63)
     params = batch_params(ir, 6, jitter={"R": {"r": workloads.R_JITTER}},
                           generator=torch.Generator().manual_seed(3))
-    x_c, ok_c, tr_c = ladder_run(ir, params, 6, 25, "cpu")
-    x_g, ok_g, tr_g = ladder_run(ir, params, 6, 25, dev)
-    check(bool(ok_c.all()) and bool(ok_g.all()), "small ladder: a lane failed")
-    rel = float((tr_g.cpu() - tr_c).abs().max() / tr_c.abs().max())
-    check(rel <= TRACE_TOL, f"small ladder card vs CPU {rel:.3e} > {TRACE_TOL}")
-    say(3, f"63-stage ladder B=6 25 steps: card vs CPU trace rel err {rel:.3e}")
-
-    # phase 4: determinism
-    x_g2, ok_g2, tr_g2 = ladder_run(ir, params, 6, 25, dev)
-    check(torch.equal(x_g, x_g2) and torch.equal(tr_g, tr_g2),
-          "repeated card run is not bit-identical")
-    say(4, "repeated card run bit-identical")
+    for inv in analog.FROZEN_INVERSES:
+        x_c, ok_c, tr_c = ladder_run(ir, params, 6, 25, "cpu", inv)
+        x_g, ok_g, tr_g = ladder_run(ir, params, 6, 25, dev, inv)
+        check(bool(ok_c.all()) and bool(ok_g.all()),
+              f"small ladder (inv={inv}): a lane failed")
+        rel = float((tr_g.cpu() - tr_c).abs().max() / tr_c.abs().max())
+        check(rel <= TRACE_TOL, f"small ladder (inv={inv}) card vs CPU "
+              f"{rel:.3e} > {TRACE_TOL}")
+        say(3, f"63-stage ladder B=6 25 steps, inv={inv}: card vs CPU trace "
+            f"rel err {rel:.3e}")
+        x_g2, ok_g2, tr_g2 = ladder_run(ir, params, 6, 25, dev, inv)
+        check(torch.equal(x_g, x_g2) and torch.equal(tr_g, tr_g2),
+              f"repeated card run (inv={inv}) is not bit-identical")
+        say(4, f"inv={inv}: repeated card run bit-identical")
 
     # phase 5: the main path at full width
-    B, steps, stages, seed = 256, 100, workloads.N_STAGES, 0
-    workloads.frozen_transient(batch=B, steps=3, stages=stages, device=dev,
-                               seed=seed)                       # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    x, ok = workloads.frozen_transient(batch=B, steps=steps, stages=stages,
-                                       device=dev, seed=seed)
-    end.record()
-    torch.cuda.synchronize()
-    launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
-    sec = start.elapsed_time(end) / 1e3
-    check(tuple(x.shape) == (B, stages + 1), f"main path x shape {tuple(x.shape)}")
-    check(bool(ok.all()), f"main path: {int((~ok).sum())} lanes failed")
-    check(bool(torch.isfinite(x).all()), "main path: non-finite x")
-    for name, cnt in launches.items():
-        check(cnt > 0, f"main path never launched {name}")
-    # reference: lanes 0-3 alone through the CPU path
-    ir = workloads.build_diode_ladder(stages)
-    p_all = batch_params(ir, B, jitter={"R": {"r": workloads.R_JITTER}},
-                         generator=torch.Generator().manual_seed(seed))
-    p4 = {k: v[:4].clone() for k, v in p_all.items()}
-    x4, ok4, _tr = ladder_run(ir, p4, 4, steps, "cpu")
-    rel5 = float((x[:4].cpu() - x4).abs().max() / x4.abs().max())
-    check(bool(ok4.all()) and rel5 <= TRACE_TOL,
-          f"main path lanes 0-3 vs CPU run {rel5:.3e} > {TRACE_TOL}")
-    rate = B * steps / sec
-    say(5, f"{stages}-stage ladder B={B} {steps} steps: {sec:.3f} s, "
-        f"{rate:.1f} circuit-steps/s on {smi}; launches {launches}; "
-        f"lanes 0-3 vs CPU {rel5:.3e}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    x5, launches = frozen_path(5, dev, smi, "gj",
+                               launched=("gj_inverse32", "gj_solve32"),
+                               idle=("lu_block_inverse32",))
 
     # the RV32 core, synthesized once for phases 6-8
     t0 = time.perf_counter()
@@ -474,6 +541,16 @@ def main():
         f"{len(watch)} signals: {k_ms:.2f} ms "
         f"({k_ms / ticks * 1e3:.1f} us per tick), "
         f"{rv32.gates * B * ticks / (k_ms / 1e3):.4e} gate-evals/s")
+
+    # phase 9: the main path with the blocked refactor
+    name = "lu_block_inverse32"
+    x9, launches9 = frozen_path(9, dev, smi, "block", launched=(name,),
+                                idle=("gj_inverse32",))
+    launches[name] = launches9[name]
+    rel9 = float((x9 - x5).abs().max() / x5.abs().max())
+    check(rel9 <= TRACE_TOL, f"block path final x vs phase 5's {rel9:.3e} "
+          f"> {TRACE_TOL}")
+    say(9, f"final x vs phase 5's (inv=gj): rel err {rel9:.3e}")
 
     print(smi)
     meta = {k: dict(source=v["source"], replaces=v["replaces"])

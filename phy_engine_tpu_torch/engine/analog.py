@@ -31,6 +31,7 @@ from .. import F32, F64
 from ..models.base import StampCtx
 from ..ops.gj import NB, gj_inverse32, gj_solve32
 from ..ops.linsolve import lu_solve_gauss
+from ..ops.lu_block import lu_block_inverse32
 from .lower import AnalogIR
 
 MAX_NEWTON_ITER = 64      # circuit.h:898
@@ -476,6 +477,8 @@ FROZEN_GROW_FRAC = 0.25   # refresh when > this fraction of active lanes
                           # contracts worse than FROZEN_RATE
 FROZEN_BAD_FRAC = 0.1     # escalate refresh -> full refactor when > this
                           # fraction sits outside the Newton-Schulz basin
+FROZEN_INVERSES = {"gj": gj_inverse32,          # refactor kernels (inv=...)
+                   "block": lu_block_inverse32}
 
 
 def frozen_fac_init(B: int, n: int, npad: int, device="cuda"):
@@ -581,22 +584,35 @@ def _ns_refresh(Minv, A32, steps: int = 2):
     return torch.where((e < 0.9)[:, None, None], X, Minv), e
 
 
+def _frozen_inverse(inv: str):
+    if inv not in FROZEN_INVERSES:
+        raise ValueError(f"inv must be one of {sorted(FROZEN_INVERSES)}, "
+                         f"got {inv!r}")
+    return FROZEN_INVERSES[inv]
+
+
 def newton_solve_frozen(ir: AnalogIR, params_b, x0_b, states0_b,
                         ctx: StampCtx, fac=None,
-                        max_iter: int = MAX_NEWTON_ITER):
+                        max_iter: int = MAX_NEWTON_ITER, inv: str = "gj"):
     """Frozen-preconditioner Newton.
 
     Each iteration prices O(nnz) f64 work (nonlinear stamps + sparse
     residual) plus one batched f32 matvec against a stored explicit
-    inverse M^-1 = J(x_f)^-1 from `gj_inverse32`, computed at refactor
-    points.  Because the residual is f64 the fixpoint is f64-accurate
-    however stale M is.  Between refactors a Newton-Schulz GEMM pair
-    refreshes M; on residual growth a burst iteration solves the fresh
-    Jacobian directly with `gj_solve32`.  The factor carry ``fac``
-    survives across transient steps.
+    inverse M^-1 = J(x_f)^-1, computed at refactor points by
+    `gj_inverse32` (``inv='gj'``, the default) or by the blocked
+    `lu_block_inverse32` (``inv='block'``: pivoting within each 32 x 32
+    diagonal block; a lane whose leading block is singular comes out
+    non-finite, fails its isfinite gate and goes to the caller's rescue
+    ladder) — the JAX package's ``FROZEN_INV`` knob as an argument.
+    Because the residual is f64 the fixpoint is f64-accurate however
+    stale M is.  Between refactors a Newton-Schulz GEMM pair refreshes
+    M; on residual growth a burst iteration solves the fresh Jacobian
+    directly with `gj_solve32`.  The factor carry ``fac`` survives
+    across transient steps.
 
     Returns (x, states, ok, fac).
     """
+    inverse32 = _frozen_inverse(inv)
     B, n = x0_b.shape
     npad = _npad(n)
     dev = x0_b.device
@@ -608,7 +624,7 @@ def newton_solve_frozen(ir: AnalogIR, params_b, x0_b, states0_b,
     def refac(vals, Zf, x, it):
         # reuse this iteration's stamped values: no second assembly
         A32, rs2, cs2 = _equil_dense32(ir, vals, npad)
-        return (gj_inverse32(A32), rs2, cs2,
+        return (inverse32(A32), rs2, cs2,
                 _frozen_tol(ir, vals, Zf, x, env), it)
 
     x, st = x0_b, states0_b
@@ -680,7 +696,7 @@ def newton_solve_frozen(ir: AnalogIR, params_b, x0_b, states0_b,
 def transient_batched(ir: AnalogIR, params_b, x0_b, states0_b, env, t0,
                       dt, num_steps: int, solver: str = "hybrid",
                       keep_trace: bool = False,
-                      max_iter: int = MAX_NEWTON_ITER):
+                      max_iter: int = MAX_NEWTON_ITER, inv: str = "gj"):
     """Batched fixed-step transient over the explicit-batch Newton path.
 
     ``t0`` and ``dt`` are host floats; step i solves at t0 + (i+1)·dt.
@@ -691,7 +707,11 @@ def transient_batched(ir: AnalogIR, params_b, x0_b, states0_b, env, t0,
     runs a per-step rescue ladder: when any lane fails, the step is
     rerun for the whole batch with 'hybrid' (fresh-factor delta, then
     f64 Gauss), failed lanes take the rescued result, and the carry is
-    invalidated for the whole batch."""
+    invalidated for the whole batch.  ``inv`` picks the frozen refactor
+    (``'gj'`` or ``'block'``, see `newton_solve_frozen`); the other
+    solvers ignore it."""
+    if solver == "frozen":
+        _frozen_inverse(inv)             # an unknown name raises up front
     t0 = float(t0)
     dt = float(dt)
     B = x0_b.shape[0]
@@ -709,7 +729,8 @@ def transient_batched(ir: AnalogIR, params_b, x0_b, states0_b, env, t0,
         if solver == "frozen":
             # warm start = previous solution, no extrapolation
             x_new, st2, ok, fac = newton_solve_frozen(
-                ir, params_b, x, st, ctx, fac=fac, max_iter=max_iter)
+                ir, params_b, x, st, ctx, fac=fac, max_iter=max_iter,
+                inv=inv)
             if not bool(ok.all()):
                 x_r, st_r, ok_r = newton_solve_batched(
                     ir, params_b, x, st, ctx, max_iter=max_iter,

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles each source of ``csrc/`` (``gj.cu``, ``turbo.cu``) for
-Hopper (``sm_90a``), one process per source, all started together, and
-links the objects into one shared library with a plain C interface,
-which ``ctypes`` loads — no PyTorch headers, so the build takes seconds.
+``nvcc`` compiles each source of ``csrc/`` (``gj.cu``, ``lu_block.cu``,
+``turbo.cu``) for Hopper (``sm_90a``), one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, which ``ctypes`` loads — no PyTorch headers, so the
+build takes seconds.
 The library is written, at first use, to ``build/phy_engine_tpu_torch/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash
 of the sources and flags so an edited source is rebuilt and an unchanged
@@ -27,7 +28,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gj.cu", "turbo.cu")
+SOURCES = ("gj.cu", "lu_block.cu", "turbo.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phy_engine_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -111,6 +112,8 @@ def load_library() -> ctypes.CDLL:
     lib.pe_gj_solve32.restype = i
     lib.pe_gj_inverse32.argtypes = [p, p, p, i, i, p]
     lib.pe_gj_inverse32.restype = i
+    lib.pe_lu_block_inverse32.argtypes = [p, p, p, p, i, i, p]
+    lib.pe_lu_block_inverse32.restype = i
     lib.pe_turbo_smem_limit.argtypes = []
     lib.pe_turbo_smem_limit.restype = i
     lib.pe_turbo_run.argtypes = [p] * 13 + [i] * 13 + [p]

@@ -1,4 +1,5 @@
-"""Test systems for the Gauss-Jordan kernels, made with numpy from a seed.
+"""Test systems for the inverse and solve kernels (Gauss-Jordan and
+blocked Gauss-Jordan), made with numpy from a seed.
 
 Shared by the CPU parity tests and ``chip_smoke.py``, which hold the
 kernels and their plain versions to the same systems:
@@ -11,6 +12,12 @@ kernels and their plain versions to the same systems:
                    and needs pivoting (``__graft_entry__.py:301-308``);
 * ``singular``   — ``random`` with one lane's column 3 set to zero; that
                    lane must come out non-finite.
+* ``block_singular`` — ``random`` with one lane's leading 32 x 32 block set
+                   to zero and the rest untouched: the matrix stays
+                   nonsingular, so the global-pivot GJ inverts the lane,
+                   but the blocked inverse (``ops.lu_block``, whose pivot
+                   search stays inside each diagonal block) must make it
+                   non-finite.
 
 Tolerance of a kernel or plain result against float64 numpy or against
 another float32 elimination: ``TOL`` relative to max|x| of the lane —
@@ -23,6 +30,7 @@ import numpy as np
 
 TOL = 1e-4
 BORDER = 8
+BLOCK = 32        # the blocked inverse's diagonal block (lu_block.NB_BLOCK)
 
 
 def singular_lane(B: int) -> int:
@@ -45,6 +53,8 @@ def system(case: str, B: int, n: int, seed: int = 0):
             A[:, 2 * k + 1, n - kv + k] = -1.0
     elif case == "singular":
         A[singular_lane(B), :, 3] = 0.0
+    elif case == "block_singular":
+        A[singular_lane(B), :BLOCK, :BLOCK] = 0.0
     elif case != "random":
         raise ValueError(case)
     return A.astype(np.float32), b.astype(np.float32)

@@ -10,7 +10,9 @@ node.  255 stages give 256 MNA unknowns (255 nodes + 1 source branch).
 ``frozen_transient`` is the main path at a chosen size: a Monte-Carlo
 batch with 5 % lognormal jitter on every R, advanced through fixed
 trapezoidal steps by the frozen-preconditioner Newton solver — the
-counterpart of the JAX package's ``bench.py`` headline.
+counterpart of the JAX package's ``bench.py`` headline; ``inv='block'``
+refactors with the blocked inverse (``ops.lu_block``) in place of the
+Gauss-Jordan one, as the JAX package's ``FROZEN_INV = "block"`` does.
 
 ``build_rv32`` synthesizes the in-repo RV32I-subset core
 (``data/pe_rv32.v``: the ``pe_rv32`` template with the fib-checksum ROM,
@@ -88,19 +90,22 @@ def default_env():
 
 
 def frozen_transient(batch: int = 256, steps: int = 100,
-                     stages: int = N_STAGES, device="cuda", seed: int = 0):
+                     stages: int = N_STAGES, device="cuda", seed: int = 0,
+                     inv: str = "gj"):
     """Run the frozen-Newton transient of the diode ladder.
 
     Builds the ``stages``-stage ladder, draws ``batch`` lanes of R jitter
     from ``torch.Generator().manual_seed(seed)``, and advances ``steps``
-    trapezoidal steps of ``DT`` from x = 0.  Returns (x (B, n), ok (B,))."""
+    trapezoidal steps of ``DT`` from x = 0, refactoring with ``inv``
+    (``'gj'`` or ``'block'``, see ``analog.newton_solve_frozen``).
+    Returns (x (B, n), ok (B,))."""
     ir = build_diode_ladder(stages)
     gen = torch.Generator().manual_seed(seed)
     params = batch_params(ir, batch, jitter={"R": {"r": R_JITTER}},
                           generator=gen, device=device)
     x, _st, ok, _ = analog.transient_batched(
         ir, params, batch_x(ir, batch, device), batch_state(ir, batch, device),
-        default_env(), 0.0, DT, steps, solver="frozen")
+        default_env(), 0.0, DT, steps, solver="frozen", inv=inv)
     return x, ok
 
 

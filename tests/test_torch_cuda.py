@@ -1,6 +1,7 @@
 """CUDA tests of the PyTorch port: the hand-written kernels against their
-plain torch versions, the small frozen transient on the card against
-the CPU path, and RV32 through Circuit.digital_run on the card.  Marked ``cuda``; each skips on a host without a CUDA
+plain torch versions, the small frozen transient (both refactors) on the
+card against the CPU path, and RV32 through Circuit.digital_run on the
+card.  Marked ``cuda``; each skips on a host without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs
 on a machine that has only torch:
 
@@ -18,7 +19,7 @@ import torch
 from phy_engine_tpu_torch import workloads
 from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
-from phy_engine_tpu_torch.ops import gj
+from phy_engine_tpu_torch.ops import gj, lu_block
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
 from phy_engine_tpu_torch.parallel.batch import batch_params, batch_state, batch_x
 
@@ -54,6 +55,52 @@ def test_kernels_match_plain(cuda, B, n, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "mna_border", "singular",
+                                  "block_singular"])
+@pytest.mark.parametrize("B,n", [(8, 128), (4, 256), (2, 1024)])
+def test_lu_block_kernel_matches_plain(cuda, B, n, case):
+    A, _b = system(case, B, n, seed=B + n)
+    Ad = torch.from_numpy(A).to(cuda)
+    s = singular_lane(B)
+    bad = case in ("singular", "block_singular")
+    good = [i for i in range(B) if not bad or i != s]
+    before = lu_block.lu_block_inverse32.launches
+    k = lu_block.lu_block_inverse32(Ad)
+    p = lu_block.lu_block_inverse32_plain(Ad)
+    torch.cuda.synchronize()
+    assert lu_block.lu_block_inverse32.launches == before + 1
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    assert np.isfinite(k[good]).all()
+    assert lane_rel_err(k[good], p[good]).max() <= TOL
+    ref = np.linalg.inv(A[good].astype(np.float64))
+    assert lane_rel_err(k[good], ref).max() <= TOL
+    if bad:
+        assert not np.isfinite(k[s]).all()
+        assert not np.isfinite(p[s]).all()
+
+
+@pytest.mark.cuda
+def test_lu_block_kernel_is_deterministic(cuda):
+    A, _b = system("random", 16, 256, seed=3)
+    Ad = torch.from_numpy(A).to(cuda)
+    assert torch.equal(lu_block.lu_block_inverse32(Ad),
+                       lu_block.lu_block_inverse32(Ad))
+
+
+@pytest.mark.cuda
+def test_lu_block_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    A, _b = system("random", 2, 128)
+    Ad = torch.from_numpy(A).to(cuda)
+    with pytest.raises(ValueError):
+        lu_block.lu_block_inverse32(Ad, nb=16)        # the kernel takes 32
+    buf = torch.empty(Ad.numel() + 4, device=cuda)
+    shifted = buf[1:1 + Ad.numel()].view(2, 128, 128)
+    shifted.copy_(Ad)
+    with pytest.raises(ValueError):                   # not 16-byte aligned
+        lu_block.lu_block_inverse32(shifted)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices(cuda):
     A, b = system("random", 2, 128)
     with pytest.raises(ValueError):
@@ -61,7 +108,8 @@ def test_wrapper_rejects_mixed_devices(cuda):
 
 
 @pytest.mark.cuda
-def test_frozen_transient_card_matches_cpu(cuda):
+@pytest.mark.parametrize("inv", ["gj", "block"])
+def test_frozen_transient_card_matches_cpu(cuda, inv):
     ir = workloads.build_diode_ladder(63)
     params = batch_params(ir, 4, jitter={"R": {"r": 0.05}},
                           generator=torch.Generator().manual_seed(11))
@@ -71,7 +119,7 @@ def test_frozen_transient_card_matches_cpu(cuda):
             ir, {k: v.to(dev) for k, v in params.items()},
             batch_x(ir, 4, dev), batch_state(ir, 4, dev),
             workloads.default_env(), 0.0, workloads.DT, 10, solver="frozen",
-            keep_trace=True)
+            keep_trace=True, inv=inv)
         assert bool(ok.all())
         traces.append(tr.cpu())
     rel = (traces[1] - traces[0]).abs().max() / traces[0].abs().max()

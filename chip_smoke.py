@@ -24,9 +24,11 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               plain version and torch.linalg.inv / torch.linalg.solve as
               the library call at the main path's shape (CUDA events);
               bound_ms from the function's least work (gj_bound).  Then
-              lu_block_inverse32 at bench_mxu.py's (64, 512) and
-              (16, 1024) on random systems, against its plain version and
-              numpy, timed beside gj_inverse32 and torch.linalg.inv.
+              every kernel at bench_mxu.py's (64, 512) and (16, 1024) on
+              random systems, against its plain version and numpy, timed
+              beside its plain version and the library call.  At each
+              shape, each kernel's device time split by CUDA kernel
+              (torch.profiler over one call).
 3. ladder   — the 63-stage diode ladder, B = 6, 25 frozen-Newton steps,
               on the card and on the CPU (plain kernels) with the same
               params: traces within 1e-6 of max|trace|; once per refactor
@@ -36,7 +38,8 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               B = 256, 100 steps of 50 ns.  Every lane converges, x is
               finite; lanes 0-3 agree with a CPU run of those lanes to
               1e-6; circuit-steps/s (CUDA events); both GJ kernels' launch
-              counts over this run are > 0.
+              counts over this run are > 0, and each kernel's launches x
+              its phase-2 time per call.
 6. turbo    — the whole-tick digital kernel against its plain torch
               version, bit-identical on every slot, tick, lane and plane:
               (a) RV32 from reset, 8 ticks, B = 2; (b) the fp16 adder with
@@ -67,6 +70,7 @@ measurements, and, last, {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -180,6 +184,34 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_split(fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler,
+    after a warm-up call): {kernel name: (ms, launches)}, empty when the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0)
+        m = re.search(r"(\w+_kernel)(<\w+>)?", ev.key)
+        if us and m:
+            ms, count = split.get(m.group(0), (0.0, 0))
+            split[m.group(0)] = (ms + us / 1e3, count + ev.count)
+    return split
+
+
+def say_split(name, B, n, Ad, bd):
+    split = device_split(lambda: run_kernel(name, Ad, bd))
+    say(2, f"{name} B={B} n={n} device time by kernel (torch.profiler): "
+        + (", ".join(f"{k} {ms:.4f} ms / {c}" for k, (ms, c) in
+                     sorted(split.items(), key=lambda kv: -kv[1][0]))
+           or "not measured (no device time in the trace)"))
+
+
 def hold(name, A, b, case, Ad, bd):
     """One kernel against its plain version and float64 numpy on one
     system; returns (rel err vs plain, vs numpy, max abs err vs plain)."""
@@ -233,26 +265,31 @@ def phase2_kernels(dev):
         r["library_ms"] = time_ms(
             lambda: run_kernel(name, Ad, bd, library=True), 20)
         r["bound_ms"], r["bound_by"] = gj_bound(name, 256, 256)
-        say(2, f"{name} B=256 n=256: kernel {t[1]:.4f} / {t[2]:.4f} ms, "
+        say(2, f"{name} B=256 n=256: kernel {t[1]:.4f} / {t[2]:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of bound), "
             f"plain {t[0]:.4f} / {t[3]:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
-    # the blocked inverse at bench_mxu.py's larger shapes, beside the GJ
-    # inverse (one timed rep at n = 1024: its n serial full-width steps
-    # run on only B SMs) and the library call
-    name = "lu_block_inverse32"
-    for B, n, gj_reps in ((64, 512, 3), (16, 1024, 1)):
+        say_split(name, 256, 256, Ad, bd)
+    # every kernel at bench_mxu.py's larger shapes on random systems,
+    # against its plain version and numpy, timed beside its plain version
+    # (one timed rep at n = 1024) and the library call
+    for B, n, plain_reps in ((64, 512, 3), (16, 1024, 1)):
         A, b = system("random", B, n, seed=B + n)
         Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
-        e_plain, e_np, _err = hold(name, A, b, "random", Ad, bd)
-        t_k = time_ms(lambda: run_kernel(name, Ad, bd), 10)
-        t_gj = time_ms(lambda: run_kernel("gj_inverse32", Ad, bd), gj_reps)
-        t_lib = time_ms(lambda: run_kernel(name, Ad, bd, library=True), 10)
-        b_ms, b_by = gj_bound(name, B, n)
-        say(2, f"{name} B={B} n={n} random: rel err vs plain {e_plain:.3e}, "
-            f"vs numpy {e_np:.3e}; kernel {t_k:.4f} ms, gj_inverse32 "
-            f"{t_gj:.4f} ms, library {t_lib:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+        for name in KERNELS:
+            e_plain, e_np, _err = hold(name, A, b, "random", Ad, bd)
+            t_k = time_ms(lambda: run_kernel(name, Ad, bd), 10)
+            t_p = time_ms(lambda: run_kernel(name, Ad, bd, plain=True),
+                          plain_reps)
+            t_lib = time_ms(lambda: run_kernel(name, Ad, bd, library=True),
+                            10)
+            b_ms, b_by = gj_bound(name, B, n)
+            say(2, f"{name} B={B} n={n} random: rel err vs plain "
+                f"{e_plain:.3e}, vs numpy {e_np:.3e}; kernel {t_k:.4f} ms "
+                f"({100 * b_ms / t_k:.1f} % of bound), plain {t_p:.2f} ms, "
+                f"library {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            say_split(name, B, n, Ad, bd)
     return results
 
 
@@ -379,13 +416,14 @@ def ladder_run(ir, params, B, steps, device, inv):
     return x, ok, tr
 
 
-def frozen_path(phase, dev, smi, inv, launched, idle):
+def frozen_path(phase, dev, smi, inv, launched, idle, results):
     """The analog main path at full width with the refactor ``inv``: the
     255-stage ladder, B = 256, 100 steps, after a 3-step warm-up, every
     kernel's count set to 0 just before and read just after.  Checks
     that every lane converges, x is finite, each kernel of ``launched``
     ran and none of ``idle`` did, and lanes 0-3 agree with a CPU run of
-    those lanes.  Returns (x, launches)."""
+    those lanes; prints each launched kernel's launches x its per-call
+    time from phase 2 (``results``).  Returns (x, launches)."""
     B, steps, stages, seed = 256, 100, workloads.N_STAGES, 0
     workloads.frozen_transient(batch=B, steps=3, stages=stages, device=dev,
                                seed=seed, inv=inv)              # warm-up
@@ -424,6 +462,10 @@ def frozen_path(phase, dev, smi, inv, launched, idle):
         f"{sec:.3f} s, {B * steps / sec:.1f} circuit-steps/s on {smi}; "
         f"launches {launches}; lanes 0-3 vs CPU {rel:.3e}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    say(phase, "launches x phase 2's per-call time at (256, 256): " + ", ".join(
+        f"{name} {launches[name]} x {results[name]['ms']:.4f} ms = "
+        f"{launches[name] * results[name]['ms'] / 1e3:.4f} s"
+        for name in KERNELS if launches[name]) + f" of the {sec:.3f} s wall")
     return x, launches
 
 
@@ -475,7 +517,8 @@ def main():
     # phase 5: the main path at full width
     x5, launches = frozen_path(5, dev, smi, "gj",
                                launched=("gj_inverse32", "gj_solve32"),
-                               idle=("lu_block_inverse32",))
+                               idle=("lu_block_inverse32",),
+                               results=results)
 
     # the RV32 core, synthesized once for phases 6-8
     t0 = time.perf_counter()
@@ -545,7 +588,7 @@ def main():
     # phase 9: the main path with the blocked refactor
     name = "lu_block_inverse32"
     x9, launches9 = frozen_path(9, dev, smi, "block", launched=(name,),
-                                idle=("gj_inverse32",))
+                                idle=("gj_inverse32",), results=results)
     launches[name] = launches9[name]
     rel9 = float((x9 - x5).abs().max() / x5.abs().max())
     check(rel9 <= TRACE_TOL, f"block path final x vs phase 5's {rel9:.3e} "

@@ -108,9 +108,9 @@ def load_library() -> ctypes.CDLL:
                            "phy_engine_tpu_torch cannot run here")
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pe_gj_solve32.argtypes = [p, p, p, p, i, i, p]
+    lib.pe_gj_solve32.argtypes = [p] * 10 + [i, i, p]
     lib.pe_gj_solve32.restype = i
-    lib.pe_gj_inverse32.argtypes = [p, p, p, i, i, p]
+    lib.pe_gj_inverse32.argtypes = [p] * 8 + [i, i, p]
     lib.pe_gj_inverse32.restype = i
     lib.pe_lu_block_inverse32.argtypes = [p, p, p, p, i, i, p]
     lib.pe_lu_block_inverse32.restype = i

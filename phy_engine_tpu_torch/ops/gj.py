@@ -17,7 +17,14 @@ Two versions of each entry point:
 * ``gj_solve32`` / ``gj_inverse32`` — the wrappers.  A CPU tensor goes to
   the plain version; a CUDA tensor launches the hand-written kernel of
   ``csrc/gj.cu`` or raises.  ``gj_solve32.launches`` and
-  ``gj_inverse32.launches`` count kernel launches.
+  ``gj_inverse32.launches`` count the calls that reached the kernel.
+
+The kernel eliminates 32-wide micro-panels on chip and applies each as
+one rank-32 update (see ``csrc/gj.cu``), so it sums in another order than
+the plain version's rank-1 steps: the two agree to ``gj_cases.TOL``, not
+bit for bit, and a repeat run of the kernel is bit-identical.  It takes
+n up to ``MAX_N`` and a 16-byte aligned ``A32``; the wrapper raises
+``ValueError`` on anything else.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import ctypes
 import torch
 
 NB = 128          # n must be a multiple of this (the reference's panel)
+MB = 32           # the kernel's micro-panel width (csrc/gj.cu)
+MAX_N = 1024      # the largest n the kernel takes (4 panel rows a thread)
 
 _NO_PIVOT = 2 ** 30
 
@@ -121,15 +130,34 @@ def _launch(fn, *tensors_and_ints):
                            f"({lib.pe_cuda_error_string(err).decode()})")
 
 
+def _scratch(A32, rhs_cols: int):
+    """The kernel's scratch: W (B, n, n), G (B, n, MB), R (B, MB, n +
+    rhs_cols) (the solve's b column and padding to 16 bytes), krow and
+    rowof (B, n) int32, pivd (B, n)."""
+    B, n, _ = A32.shape
+    if n > MAX_N:
+        raise ValueError(f"n={n}: the CUDA kernel takes n <= {MAX_N}")
+    if A32.data_ptr() % 16:
+        raise ValueError("A32 must be 16-byte aligned for the CUDA kernel")
+    f32 = dict(dtype=torch.float32, device=A32.device)
+    i32 = dict(dtype=torch.int32, device=A32.device)
+    return (torch.empty((B, n, n), **f32), torch.empty((B, n, MB), **f32),
+            torch.empty((B, MB, n + rhs_cols), **f32),
+            torch.empty((B, n), **i32), torch.empty((B, n), **f32),
+            torch.empty((B, n), **i32))
+
+
 def gj_solve32(A32, b32):
     """f32 batched solve A x = b; A (B, n, n), b (B, n); n % 128 == 0."""
     _check(A32, b32)
     if A32.device.type == "cpu":
         return gj_solve32_plain(A32, b32)
     B, n, _ = A32.shape
-    W = torch.empty((B, n, n + 1), dtype=torch.float32, device=A32.device)
+    W, G, R, krow, pivd, rowof = _scratch(A32, 4)
+    Wb = torch.empty((B, n), dtype=torch.float32, device=A32.device)
     x = torch.empty((B, n), dtype=torch.float32, device=A32.device)
-    _launch("pe_gj_solve32", A32, b32, W, x, B, n)
+    _launch("pe_gj_solve32", A32, b32, W, Wb, G, R, krow, pivd, rowof, x,
+            B, n)
     gj_solve32.launches += 1
     return x
 
@@ -144,9 +172,9 @@ def gj_inverse32(A32):
     if A32.device.type == "cpu":
         return gj_inverse32_plain(A32)
     B, n, _ = A32.shape
-    W = torch.empty((B, n, 2 * n), dtype=torch.float32, device=A32.device)
+    W, G, R, krow, pivd, rowof = _scratch(A32, 0)
     X = torch.empty((B, n, n), dtype=torch.float32, device=A32.device)
-    _launch("pe_gj_inverse32", A32, W, X, B, n)
+    _launch("pe_gj_inverse32", A32, W, G, R, krow, pivd, rowof, X, B, n)
     gj_inverse32.launches += 1
     return X
 

@@ -8,8 +8,10 @@ on a machine that has only torch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: kernels ``gj_cases.TOL`` (1e-4) relative to max|x| of the
-lane; the transient 1e-6 relative to max|trace|; the turbo kernel none
-(bit-identical: exact integer logic).
+lane (the blocked kernels sum in another order than their plain
+versions; a repeat run of a kernel is bit-identical); the transient 1e-6
+relative to max|trace|; the turbo kernel none (bit-identical: exact
+integer logic).
 """
 
 import numpy as np
@@ -52,6 +54,76 @@ def test_kernels_match_plain(cuda, B, n, case):
         if case == "singular":
             assert not np.isfinite(k[s]).all()
             assert not np.isfinite(p[s]).all()
+
+
+GJ_KERNELS = {"inverse": (gj.gj_inverse32, gj.gj_inverse32_plain),
+              "solve": (gj.gj_solve32, gj.gj_solve32_plain)}
+
+
+def _gj_call(fn, kind, Ad, bd):
+    return fn(Ad) if kind == "inverse" else fn(Ad, bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,case", [
+    (4, 256, "random"), (4, 256, "mna_border"), (4, 256, "singular"),
+    (4, 256, "block_singular"),
+    (2, 1024, "random"), (2, 1024, "mna_border"), (2, 1024, "singular"),
+    (3, 384, "mna_border"), (2, 640, "random"), (2, 768, "singular")])
+@pytest.mark.parametrize("kind", ["inverse", "solve"])
+def test_gj_kernel_matches_plain_and_numpy(cuda, kind, B, n, case):
+    """The blocked kernels against their plain versions and float64 numpy,
+    one launch per call, at n = 256 (one panel row a thread), 384 (a
+    second row for half the threads), 640 and 768 (three rows), and 1024
+    (four rows); the global pivot search inverts the block-singular lane.
+    (That lane's condition number grows with n: at
+    n = 1024 it is 5.6e4 and the plain version alone lies 2e-4 from
+    float64 numpy, beyond TOL, so the case runs at n = 256.)"""
+    A, b = system(case, B, n, seed=B + n + 1)
+    Ad, bd = torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda)
+    kern, plain = GJ_KERNELS[kind]
+    s = singular_lane(B)
+    good = [i for i in range(B) if case != "singular" or i != s]
+    before = kern.launches
+    k = _gj_call(kern, kind, Ad, bd)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    p = _gj_call(plain, kind, Ad, bd)
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    A64 = A[good].astype(np.float64)
+    ref = (np.linalg.inv(A64) if kind == "inverse" else
+           np.linalg.solve(A64, b[good].astype(np.float64)[..., None])[..., 0])
+    assert np.isfinite(k[good]).all()
+    assert lane_rel_err(k[good], p[good]).max() <= TOL
+    assert lane_rel_err(k[good], ref).max() <= TOL
+    if case == "singular":
+        assert not np.isfinite(k[s]).all()
+        assert not np.isfinite(p[s]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["inverse", "solve"])
+def test_gj_kernel_is_deterministic(cuda, kind):
+    A, b = system("mna_border", 16, 256, seed=5)
+    Ad, bd = torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda)
+    kern, _plain = GJ_KERNELS[kind]
+    assert torch.equal(_gj_call(kern, kind, Ad, bd),
+                       _gj_call(kern, kind, Ad, bd))
+
+
+@pytest.mark.cuda
+def test_gj_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    A, b = system("random", 1, 1152)
+    Ad, bd = torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda)
+    with pytest.raises(ValueError, match="n <= 1024"):
+        gj.gj_inverse32(Ad)
+    with pytest.raises(ValueError, match="n <= 1024"):
+        gj.gj_solve32(Ad, bd)
+    buf = torch.empty(128 * 128 + 4, device=cuda)
+    shifted = buf[1:1 + 128 * 128].view(1, 128, 128)
+    shifted.copy_(Ad[:, :128, :128])
+    with pytest.raises(ValueError, match="aligned"):
+        gj.gj_inverse32(shifted)
 
 
 @pytest.mark.cuda

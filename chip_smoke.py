@@ -47,17 +47,29 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               full history and a watch list; (c) case (b) with the state
               forced into the global-memory placement; (d) RV32, B = 128,
               each instance from its own random V/U start words, 8 ticks,
-              watching phase 8's signals.  Times kernel and plain version
-              at (a) (CUDA events); bound_ms from (a)'s inputs.
+              watching phase 8's signals; (e) fp16's plan with one chunk
+              per gate op (every op, random operands), in both
+              placements.  Prints the RV32 schedule (levels per tick per
+              pass, records, the host's build time), times kernel and
+              plain version at (a) (CUDA events; bound_ms from (a)'s
+              inputs), times the kernel on RV32 B = 1 x 404 ticks, full
+              history, under its schedule and under two altered ones that
+              keep the indices but not the function (each level a row
+              with no gate; no level at all): us per tick and ns per
+              level, where the time per level goes.  Then ptxas's register
+              lines of the turbo kernel.
 7. digital main path — Circuit.digital_run on the RV32 core (22,051
               gates + 640 flip-flops at -O1), one instance, reset plus 200
               clocks (404 ticks): result = 4264 and done = 1 on lane 0 of
               the last tick; the turbo kernel launched; wall time (CUDA
-              events) and gate-evals/s = (gates + FFs) x ticks / wall.
+              events) and gate-evals/s = (gates + FFs) x ticks / wall;
+              the kernel alone at B = 1 x 404 with the full history,
+              beside its bound.
 8. batched  — Circuit.digital_run_batch, 128 RV32 instances x 400 ticks
               from the common post-reset state, watching result and done:
               every instance ends with 4264; aggregate gate-evals/s and
-              peak device memory.
+              peak device memory; the kernel alone at B = 128 x 404 with
+              the watch list, beside its bound.
 9. block path — phase 5 with the blocked refactor,
               workloads.frozen_transient(..., inv="block"): every lane
               converges, x is finite; lu_block_inverse32 launched and
@@ -69,6 +81,8 @@ Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements, and, last, {"ok": true, "device": {...}}.
 """
 
+import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -293,41 +307,32 @@ def phase2_kernels(dev):
     return results
 
 
-def comb_slot_ops(tab, n):
-    """(valid slots, least logic instructions) of a combinational table's
-    first n chunks.  A three-input logic instruction (LOP3) combines at
-    most three words into one, so a word that depends on m words takes
-    at least ceil((m - 1) / 2) of them.  A two-operand gate's V word
-    depends on both operands' V and U words: 2.  A one-operand gate's
-    (NOT, YES: the operand twice) on its operand's two: 1.  IS_UNKNOWN's
-    V word is its operand's U word: 0."""
-    t = tab[:, :n * turbo.CHUNK]
-    valid = t[turbo._R_VALID] != 0
-    two = ((t[turbo._R_AHI] != t[turbo._R_BHI])
-           | (t[turbo._R_ALO] != t[turbo._R_BLO]))
-    unknown = t[turbo._R_CORE0 + 5] != 0
-    ops = np.where(two, 2, np.where(unknown, 0, 1))
-    return int(valid.sum()), int(ops[valid].sum())
+def gate_ops(rec):
+    """Least logic instructions of a pass's gate records.  A three-input
+    logic instruction (LOP3) combines at most three words into one, so a
+    word that depends on m words takes at least ceil((m - 1) / 2) of
+    them.  A two-operand gate's V word depends on both operands' V and U
+    words: 2.  A one-operand gate's (NOT, YES: the operand twice) on its
+    operand's two: 1.  IS_UNKNOWN's V word is its operand's U word: 0."""
+    two = rec[:, 0] != rec[:, 1]
+    unknown = (rec[:, 3] >> turbo._OP_CORE_SHIFT) == turbo._N_CORES - 1
+    return int(np.where(two, 2, np.where(unknown, 0, 1)).sum())
 
 
 def turbo_bound(plan, B, T, width):
-    """Bytes: the table rows of the valid gate slots (16 int32 words
-    each) and flip-flop slots (12), the forced slots' indices, the start
-    planes and the forced planes read once, the history written once;
-    padding slots are left out.  Operations (see comb_slot_ops): each
-    gate slot's least count, and per flip-flop 4 with its reset enabled
-    (the new q's V word depends on 9 words: V of q; V and U of d, clock,
-    last clock and reset), else 3 (7 words); once per tick and
-    instance."""
-    g_cone, o_cone = comb_slot_ops(plan.cone_tab, plan.n_cone)
-    g_full, o_full = comb_slot_ops(plan.full_tab, plan.n_full)
-    ff = plan.ff_tab
-    ff_valid = ff[turbo._F_VALID] != 0
-    ffs = int(ff_valid.sum())
-    ff_ops = int(np.where(ff[turbo._F_RSTEN] != 0, 4, 3)[ff_valid].sum())
-    tab_words = 16 * (g_cone + g_full) + 12 * ffs + 2 * plan.nf
+    """Bytes: the schedule's compact records read once (4 words per gate,
+    6 per flip-flop, 1 per forced slot), the start planes and the forced
+    planes read once, the history written once.  Operations (see
+    gate_ops): each gate's least count, and per flip-flop 4 with its
+    reset enabled (the new q's V word depends on 9 words: V of q; V and U
+    of d, clock, last clock and reset), else 3 (7 words); once per tick
+    and instance."""
+    sc = plan.schedule
+    ff_ops = int(np.where(sc.ff_rec[:, 5] != 0, 4, 3).sum())
+    tab_words = (4 * (len(sc.cone_rec) + len(sc.full_rec))
+                 + 6 * len(sc.ff_rec) + plan.nf)
     words = tab_words + B * (2 * plan.K + 2 * T * plan.nf + 2 * T * width)
-    ops = B * T * (o_cone + o_full + ff_ops)
+    ops = B * T * (gate_ops(sc.cone_rec) + gate_ops(sc.full_rec) + ff_ops)
     return bound(4 * words, ops, INT32_OPS)
 
 
@@ -348,10 +353,40 @@ def turbo_err(case, force_global=False, watch=None):
 def turbo_kernel_ms(dev, rv32, B, ticks, watch=None):
     """The turbo kernel alone on RV32 from its all-X state through
     ``ticks`` ticks of the main path's schedule, B instances (CUDA
-    events; not counted as main-path launches)."""
+    events; not counted as main-path launches), and its bound_ms."""
     plan, st0, FV, FU = turbo_cases.rv32_case(B, ticks, dev, design=rv32)
-    return time_ms(lambda: turbo.run_turbo(plan, st0, FV, FU, watch=watch),
-                   3)
+    ms = time_ms(lambda: turbo.run_turbo(plan, st0, FV, FU, watch=watch), 3)
+    width = plan.K if watch is None else len(watch)
+    return ms, turbo_bound(plan, B, ticks, width)[0]
+
+
+def gateless(plan, keep_levels):
+    """A copy of ``plan`` (``plan`` itself untouched) whose passes run no
+    gate: each level one padding record (``keep_levels``), else no level.
+    Every index stays in range; the function does not."""
+    sc = plan.schedule
+    out = {}
+    for p in ("cone", "full"):
+        L = len(getattr(sc, p + "_off")) - 1 if keep_levels else 0
+        out[p + "_rec"] = np.tile(np.array([0, 0, 0, turbo._OP_PAD],
+                                           np.int32), (L, 1))
+        out[p + "_off"] = np.arange(L + 1, dtype=np.int32)
+    alt = copy.copy(plan)
+    alt._sched, alt._dev = dataclasses.replace(sc, **out), {}
+    return alt
+
+
+def turbo_split(dev, rv32, ticks):
+    """The kernel on RV32, B = 1 x ``ticks``, full history, under its
+    schedule ("real"), with every level's gates taken out ("empty": the
+    per-level loop, ring and barrier) and with no level ("none": the
+    tick's fixed part, forced inputs, flip-flops and history).  Returns
+    {name: ms} (CUDA events; not counted as main-path launches)."""
+    plan, st0, FV, FU = turbo_cases.rv32_case(1, ticks, dev, design=rv32)
+    plans = {"real": plan, "empty": gateless(plan, True),
+             "none": gateless(plan, False)}
+    return {k: time_ms(lambda: turbo.run_turbo(p, st0, FV, FU), 3)
+            for k, p in plans.items()}
 
 
 def rv32_watch(rv32):
@@ -389,8 +424,15 @@ def phase6_turbo(dev, rv32):
     say(6, f"(d) RV32, B=128 each from its own random V/U start words "
         f"(X/Z lanes), 8 ticks, watching phase 8's {len(watch8)} signals: "
         "bit-identical")
+    case_e = turbo_cases.all_ops_case(4, 6, seed=7, device=dev)
+    for force_global in (False, True):
+        same(case_e, f"(e) every gate op global={force_global}", force_global)
+    say(6, "(e) fp16's plan with one chunk per gate op (all 14, random "
+        "operands), random V/U with X/Z lanes, B=4, 6 ticks, both "
+        "placements: bit-identical")
     r = {"max_abs_err": max(errs)}
     plan, st0, FV, FU = case_a
+    sc = plan.schedule
     FVp, FUp = plan.pad_forced(FV, FU)
     t = [time_ms(lambda: turbo.run_turbo_plain(plan, st0, FVp, FUp), 1),
          time_ms(lambda: turbo.run_turbo(plan, st0, FV, FU), 10),
@@ -400,11 +442,46 @@ def phase6_turbo(dev, rv32):
     r["plain_ms"] = (t[0] + t[3]) / 2
     r["library_ms"] = None          # no PyTorch call computes a gate tick
     r["bound_ms"], r["bound_by"] = turbo_bound(plan, 2, 8, plan.K)
-    say(6, f"RV32 B=2 T=8 ({plan.n_chunks_per_tick} chunks/tick, K="
-        f"{plan.K}, {4 * turbo.state_words(plan)} B of state): kernel "
-        f"{t[1]:.3f} / {t[2]:.3f} ms, plain {t[0]:.1f} / {t[3]:.1f} ms, "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    n_cone, n_full = sc.levels
+    widths = [np.diff(off) for off in (sc.cone_off, sc.full_off)]
+    rows = sum(int((-(-w // turbo.THREADS)).sum()) for w in widths)
+    say(6, f"RV32 schedule: {n_cone} cone + {n_full} full levels per tick "
+        f"({plan.n_chunks_per_tick} chunks in the tables; median width "
+        f"{np.median(widths[0]):g} / {np.median(widths[1]):g} gates, widest "
+        f"{widths[0].max()} / {widths[1].max()}; {rows} rows of "
+        f"{turbo.THREADS}), {len(sc.cone_rec) + len(sc.full_rec)} gate "
+        f"records + {len(sc.ff_rec)} flip-flop records, built on the host "
+        f"in {sc.build_s * 1e3:.1f} ms")
+    say(6, f"RV32 B=2 T=8 (K={plan.K}, {4 * turbo.state_words(plan)} B of "
+        f"state, {turbo.THREADS} threads a block): kernel {t[1]:.3f} / "
+        f"{t[2]:.3f} ms, plain {t[0]:.1f} / {t[3]:.1f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    ticks = 404
+    t = turbo_split(dev, rv32, ticks)
+    levels = n_cone + n_full
+    say(6, f"RV32 B=1 x {ticks} ticks, full history, {turbo.THREADS} threads "
+        f"a block: {t['real']:.3f} ms ({t['real'] / ticks * 1e3:.2f} us/tick, "
+        f"{t['real'] / ticks / levels * 1e6:.1f} ns/level); with no gate in "
+        f"any level {t['empty']:.3f} ms "
+        f"({(t['empty'] - t['none']) / ticks / levels * 1e6:.1f} ns/level "
+        f"above the fixed part); with no level {t['none']:.3f} ms "
+        f"({t['none'] / ticks * 1e3:.2f} us/tick fixed)")
+    for line in ptxas_lines("turbo_kernel"):
+        say(6, f"ptxas: {line}")
     return r
+
+
+def ptxas_lines(kernel):
+    """ptxas's spill and register lines of each instance of ``kernel``
+    from the build's report."""
+    out, entry = [], None
+    for line in Path(str(_build.library_path()) + ".ptxas.txt").read_text() \
+            .splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if kernel in line else None
+        elif entry and ("spill" in line or "registers" in line):
+            out.append(f"{entry}: {line.strip()}")
+    return out
 
 
 def ladder_run(ir, params, B, steps, device, inv):
@@ -552,10 +629,11 @@ def main():
         f"done {int(done[0])}; wall {sec * 1e3:.1f} ms, "
         f"{rv32.gates * ticks / sec:.4e} gate-evals/s on {smi}; turbo "
         f"launches {launches[TURBO['name']]}")
-    k_ms = turbo_kernel_ms(dev, rv32, 1, ticks)
+    k_ms, b_ms = turbo_kernel_ms(dev, rv32, 1, ticks)
     say(7, f"the kernel alone, B=1 x {ticks} ticks, full history: "
-        f"{k_ms:.2f} ms ({k_ms / ticks * 1e3:.1f} us per tick), "
-        f"{100 * k_ms / (sec * 1e3):.1f} % of the wall above")
+        f"{k_ms:.3f} ms ({k_ms / ticks * 1e3:.2f} us per tick), "
+        f"{100 * k_ms / (sec * 1e3):.1f} % of the wall above; bound "
+        f"{b_ms:.4f} ms ({100 * b_ms / k_ms:.2f} % of it)")
 
     # phase 8: 128 instances through digital_run_batch
     B = 128
@@ -579,11 +657,12 @@ def main():
         f"gate-evals/s on {smi}; turbo launches {n8}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     watch = rv32_watch(rv32)
-    k_ms = turbo_kernel_ms(dev, rv32, B, ticks, watch)
+    k_ms, b_ms = turbo_kernel_ms(dev, rv32, B, ticks, watch)
     say(8, f"the kernel alone, B={B} x {ticks} ticks, watching "
-        f"{len(watch)} signals: {k_ms:.2f} ms "
-        f"({k_ms / ticks * 1e3:.1f} us per tick), "
-        f"{rv32.gates * B * ticks / (k_ms / 1e3):.4e} gate-evals/s")
+        f"{len(watch)} signals: {k_ms:.3f} ms "
+        f"({k_ms / ticks * 1e3:.2f} us per tick), "
+        f"{rv32.gates * B * ticks / (k_ms / 1e3):.4e} gate-evals/s; bound "
+        f"{b_ms:.4f} ms ({100 * b_ms / k_ms:.2f} % of it)")
 
     # phase 9: the main path with the blocked refactor
     name = "lu_block_inverse32"

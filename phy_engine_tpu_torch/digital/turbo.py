@@ -19,7 +19,21 @@ One tick, in order (``_tick_core`` of the JAX package):
 4. the full combinational graph settles, chunk by chunk.
 
 Within a chunk every gate reads its operands before any gate of the
-chunk stores (a sub-level never depends on itself).
+chunk stores (a sub-level never depends on itself).  Padding slots of a
+chunk store 0 to the trash slot.
+
+The tick runs from a gate-level schedule that :func:`level_schedule`
+derives from the chunk tables (:attr:`TurboPlan.schedule`): per
+combinational pass one record ``{a, b, o, op}`` per valid gate, sorted
+by level, where a gate's level exceeds that of every gate it must
+follow under the chunk semantics (the last earlier writer of a slot it
+reads, the earlier writer of the slot it writes, and each gate that
+reads that slot's older value).  The gates of one level are then
+independent, and running the levels in order, each gate storing right
+after it computes, gives the chunk order's result bit for bit.  Per
+flip-flop segment one record ``{d, c, r, q, lc, rst_en}`` per flip-flop.
+Where a pass or segment has padding slots the schedule says so, and
+the tick stores 0 to the trash slot there.
 
 State layout of the port: ``(B, 2, K)`` int32, the V and U planes of K
 signal slots, 32 stimulus lanes per word (bit i = lane i), for B
@@ -28,7 +42,7 @@ is a device detail of the MXU program and is not carried over:
 :meth:`TurboPlan.pack_state` / :meth:`TurboPlan.unpack_hist` convert at
 the edges.
 
-Two versions of the tick loop:
+Two versions of the tick loop, both walking the schedule level by level:
 
 * :func:`run_turbo_plain` — plain torch: direct index gathers and
   scatters on int32 tensors in place of the TPU's one-hot matmuls;
@@ -47,7 +61,9 @@ Everything a synthesized netlist produces qualifies.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +98,14 @@ _N_ROWS = _R_CORE0 + (_N_CORES - 1)
 # FF table rows
 (_F_DHI, _F_DLO, _F_CHI, _F_CLO, _F_RHI, _F_RLO, _F_QHI, _F_QLO,
  _F_LHI, _F_LLO, _F_VALID, _F_RSTEN) = range(12)
+
+# gate record {a, b, o, op}: op = inv_a | inv_b << 1 | inv_o << 2 | core << 3;
+# in the kernel's rows (level_rows) also _OP_SYNC and _OP_PAD
+_OP_CORE_SHIFT = 3
+_OP_SYNC = 1 << 6          # the block barrier follows this record's row
+_OP_PAD = 1 << 7           # a padding record: no gate
+# flip-flop record columns
+_FF_REC = ("d", "c", "r", "q", "lc", "rst_en")
 
 
 def eligible(ir: DigitalIR) -> bool:
@@ -294,6 +318,7 @@ class TurboPlan:
         f[:nf] = forced_sig
         self.f_hi = (f >> 7)[None, :]
         self.f_lo = (f & 127)[None, :]
+        self._sched: Optional[LevelSchedule] = None
         self._dev: Dict[str, Dict[str, torch.Tensor]] = {}
 
     # -- counts -------------------------------------------------------------
@@ -303,8 +328,12 @@ class TurboPlan:
         return self.n_cone + ff + self.n_full
 
     @property
-    def max_seg_chunks(self) -> int:
-        return max([c1 - c0 for c0, c1 in self.ff_ranges] or [0])
+    def schedule(self) -> "LevelSchedule":
+        """The gate-level schedule of the tables (built on first use;
+        raises ValueError where the tables fail its checks)."""
+        if self._sched is None:
+            self._sched = level_schedule(self)
+        return self._sched
 
     # -- state layout -------------------------------------------------------
     def pack_state(self, sv: np.ndarray, su: np.ndarray,
@@ -347,17 +376,227 @@ class TurboPlan:
         return pad(FV), pad(FU)
 
     def tables(self, device) -> Dict[str, torch.Tensor]:
-        """The chunk tables as int32 tensors on ``device`` (cached)."""
+        """The schedule's arrays as int32 tensors on ``device`` (cached),
+        and its passes in the kernel's rows (``cone``, ``full``:
+        :func:`level_rows` at :data:`THREADS`)."""
         key = str(torch.device(device))
         if key not in self._dev:
-            f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            sc = self.schedule
+            f = lambda a: torch.from_numpy(
+                np.ascontiguousarray(a, np.int32)).to(device)
             self._dev[key] = {
-                "cone": f(self.cone_tab), "full": f(self.full_tab),
-                "ff": f(self.ff_tab), "f_hi": f(self.f_hi[0]),
-                "f_lo": f(self.f_lo[0]),
-                "ff_ranges": f(np.array(self.ff_ranges or [(0, 0)],
-                                        np.int32).reshape(-1, 2))}
+                "cone_rec": f(sc.cone_rec), "full_rec": f(sc.full_rec),
+                "cone": f(level_rows(sc.cone_rec, sc.cone_off, THREADS)),
+                "full": f(level_rows(sc.full_rec, sc.full_off, THREADS)),
+                "ff_rec": f(sc.ff_rec), "ff_seg": f(sc.ff_seg),
+                "f_slot": f(sc.f_slot)}
         return self._dev[key]
+
+
+# ---------------------------------------------------------------------------
+# the gate-level schedule (host, numpy)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LevelSchedule:
+    """Gate-level schedule of one :class:`TurboPlan` (module doc).
+
+    ``*_rec``: (G, 4) int32 gate records ``{a, b, o, op}`` sorted by
+    level, ``*_off``: (L + 1,) int32 level bounds into them, ``*_col``:
+    each record's table column (host only), ``*_zero``: the pass stores 0
+    to the trash slot.  ``ff_rec``: (F, 6) int32 flip-flop records
+    (``_FF_REC``), ``ff_seg``: (n_seg, 3) int32 ``{first, end, zero}``
+    per segment.  ``f_slot``: (nf_pad,) int32 forced slots, padding
+    entries at the trash slot.  ``build_s``: host seconds to build."""
+    cone_rec: np.ndarray
+    cone_off: np.ndarray
+    cone_col: np.ndarray
+    cone_zero: bool
+    full_rec: np.ndarray
+    full_off: np.ndarray
+    full_col: np.ndarray
+    full_zero: bool
+    ff_rec: np.ndarray
+    ff_seg: np.ndarray
+    f_slot: np.ndarray
+    build_s: float
+
+    @property
+    def levels(self) -> Tuple[int, int]:
+        """Levels per tick of the cone and the full pass."""
+        return len(self.cone_off) - 1, len(self.full_off) - 1
+
+    @property
+    def max_seg_ffs(self) -> int:
+        seg = self.ff_seg
+        return int((seg[:, 1] - seg[:, 0]).max()) if len(seg) else 0
+
+
+def level_rows(rec, off, nt: int) -> np.ndarray:
+    """The kernel's layout of one pass for a block of ``nt`` threads:
+    level l's records fill ceil(w_l / nt) rows of ``nt``, record j of the
+    level at row j // nt, column j % nt (the thread that runs it).
+    Padding records carry ``_OP_PAD`` (and slot 0), every record of a
+    level's last row ``_OP_SYNC``.  Returns (rows * nt, 4) int32."""
+    w = np.diff(off)
+    n_rows = -(-w // nt)
+    first = np.cumsum(n_rows) - n_rows
+    out = np.zeros((int(n_rows.sum()) * nt, 4), np.int32)
+    out[:, 3] = _OP_PAD
+    level = np.repeat(np.arange(len(w)), w)
+    out[first[level] * nt + np.arange(len(rec)) - off[level]] = rec
+    out.reshape(-1, nt, 4)[first + n_rows - 1, :, 3] |= _OP_SYNC
+    return out
+
+
+def _mask_rows(x, what: str):
+    if not np.isin(x, (0, -1)).all():
+        raise ValueError(f"{what}: a mask row holds a value other than 0 "
+                         "or -1")
+    return x != 0
+
+
+def _slots_in(x, hi: int, what: str):
+    if x.size and (x.min() < 0 or x.max() >= hi):
+        raise ValueError(f"{what} outside [0, {hi})")
+
+
+def _gate_levels(a, b, o, chunk, what: str) -> np.ndarray:
+    """Level of each gate under the chunk semantics: one past every gate
+    it must follow.  A gate follows the last writer of each slot it
+    reads in an earlier chunk (read after write), the previous writer of
+    the slot it writes (write after write), and every gate that reads
+    the value its write replaces, in its own chunk or earlier (write
+    after read).  Levels are the longest paths from the gates that
+    follow none (Kahn's algorithm, one level a step)."""
+    G = len(o)
+    if G == 0:
+        return np.zeros(0, np.int64)
+    span = int(chunk.max()) + 1
+    wkey = o.astype(np.int64) * span + chunk
+    worder = np.argsort(wkey, kind="stable")
+    ws, wo = wkey[worder], o[worder]
+    dup = np.flatnonzero(ws[1:] == ws[:-1])
+    if dup.size:
+        g = worder[dup[0]]
+        raise ValueError(f"{what}: two gates of chunk {chunk[g]} write "
+                         f"slot {o[g]}")
+    same = np.flatnonzero(wo[1:] == wo[:-1])
+    src = [worder[same]]
+    dst = [worder[same + 1]]
+    reader = np.tile(np.arange(G), 2)
+    rs = np.concatenate([a, b]).astype(np.int64)
+    # the first write of the slot at or after the reader's chunk
+    pos = np.searchsorted(ws, rs * span + chunk[reader])
+    prev = np.maximum(pos - 1, 0)
+    raw = (pos > 0) & (wo[prev] == rs)
+    src.append(worder[prev[raw]])
+    dst.append(reader[raw])
+    nxt = np.minimum(pos, G - 1)
+    war = (pos < G) & (wo[nxt] == rs)
+    src.append(reader[war])
+    dst.append(worder[nxt[war]])
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    own = src != dst              # a gate reading its own output slot
+    src, dst = src[own], dst[own]
+    indeg = np.bincount(dst, minlength=G)
+    by_src = np.argsort(src, kind="stable")
+    succ = dst[by_src]
+    ptr = np.searchsorted(src[by_src], np.arange(G + 1))
+    level = np.full(G, -1, np.int64)
+    front = np.flatnonzero(indeg == 0)
+    lv = 0
+    while front.size:
+        level[front] = lv
+        lo, n = ptr[front], ptr[front + 1] - ptr[front]
+        idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(n.sum())
+        nxt = succ[idx]
+        np.subtract.at(indeg, nxt, 1)
+        nxt = np.unique(nxt)
+        front = nxt[indeg[nxt] == 0]
+        lv += 1
+    if (level < 0).any():
+        g = np.flatnonzero(level < 0)[0]
+        raise ValueError(f"{what}: gates of chunk {chunk[g]} read each "
+                         "other's output slots (no level order exists)")
+    return level
+
+
+def _comb_schedule(tab, n: int, trash: int, what: str):
+    """(records, level bounds, table columns, zero) of one pass."""
+    t = tab[:, :n * CHUNK]
+    col = np.flatnonzero(_mask_rows(t[_R_VALID], what))
+    g = t[:, col]
+    a = g[_R_AHI] * CHUNK + g[_R_ALO]
+    b = g[_R_BHI] * CHUNK + g[_R_BLO]
+    o = g[_R_OHI] * CHUNK + g[_R_OLO]
+    # valid gates never touch the trash slot, so where the pass stores 0
+    # to it does not matter
+    for name, x in (("a", a), ("b", b), ("o", o)):
+        _slots_in(x, trash, f"{what}: a gate's {name} slot")
+    inv = _mask_rows(g[_R_INVA:_R_INVO + 1], what)
+    hot = _mask_rows(g[_R_CORE0:_N_ROWS], what)
+    if (hot.sum(axis=0) > 1).any():
+        raise ValueError(f"{what}: a gate selects two cores")
+    core = (hot * np.arange(1, _N_CORES)[:, None]).sum(axis=0)
+    op = (inv[0] | inv[1] << 1 | inv[2] << 2 | core << _OP_CORE_SHIFT)
+    level = _gate_levels(a, b, o, col // CHUNK, what)
+    # within a level by core, so that the kernel's warps mostly run one
+    order = np.lexsort((col, core, level))
+    rec = np.stack([a, b, o, op], axis=1)[order].astype(np.int32)
+    n_lv = int(level.max()) + 1 if len(level) else 0
+    off = np.searchsorted(level[order], np.arange(n_lv + 1)).astype(np.int32)
+    # padding among the pass's chunks stores 0 to the trash slot
+    return rec, off, col[order].astype(np.int32), len(col) < t.shape[1]
+
+
+def _ff_schedule(plan):
+    """(records, segments) of the flip-flop table."""
+    recs, seg, first = [], [], 0
+    for s, (c0, c1) in enumerate(plan.ff_ranges):
+        what = f"FF segment {s}"
+        t = plan.ff_tab[:, c0 * CHUNK:c1 * CHUNK]
+        col = np.flatnonzero(_mask_rows(t[_F_VALID], what))
+        g = t[:, col]
+        sl = {k: g[hi] * CHUNK + g[hi + 1] for k, hi in (
+            ("d", _F_DHI), ("c", _F_CHI), ("r", _F_RHI), ("q", _F_QHI),
+            ("lc", _F_LHI))}
+        ren = g[_F_RSTEN]
+        _mask_rows(ren, what)
+        for k in ("d", "c", "q", "lc"):
+            _slots_in(sl[k], plan.trash, f"{what}: a flip-flop's {k} slot")
+        # a DFF's reset input is the trash slot, read and masked off
+        _slots_in(np.where(ren != 0, sl["r"], 0), plan.trash,
+                  f"{what}: an enabled reset slot")
+        _slots_in(sl["r"], plan.trash + 1, f"{what}: a reset slot")
+        w = np.concatenate([sl["q"], sl["lc"]])
+        if len(np.unique(w)) < len(w):
+            raise ValueError(f"{what}: two flip-flops write one slot")
+        recs.append(np.stack([sl[k] for k in _FF_REC[:-1]] + [ren], axis=1))
+        seg.append((first, first + len(col), int(len(col) < t.shape[1])))
+        first += len(col)
+    rec = (np.concatenate(recs) if recs else np.zeros((0, 6))).astype(np.int32)
+    return rec, np.array(seg, np.int32).reshape(-1, 3)
+
+
+def level_schedule(plan: TurboPlan) -> LevelSchedule:
+    """Build the gate-level schedule of ``plan``'s tables (module doc).
+    Raises ValueError where the tables leave the result undefined (two
+    gates of one chunk, or two flip-flops of one segment, write one
+    slot) or outside what the schedule handles (a gate touching the
+    trash slot, gates of one chunk reading each other's outputs,
+    repeated forced slots)."""
+    t0 = time.perf_counter()
+    cone = _comb_schedule(plan.cone_tab, plan.n_cone, plan.trash, "cone")
+    full = _comb_schedule(plan.full_tab, plan.n_full, plan.trash, "full")
+    ff_rec, ff_seg = _ff_schedule(plan)
+    f = (plan.f_hi[0] * CHUNK + plan.f_lo[0]).astype(np.int32)
+    _slots_in(f[:plan.nf], plan.trash, "a forced slot")
+    if len(np.unique(f[:plan.nf])) < plan.nf or (f[plan.nf:] != plan.trash).any():
+        raise ValueError("forced slots repeat, or padding is not the trash "
+                         "slot")
+    return LevelSchedule(*cone, *full, ff_rec, ff_seg, f,
+                         time.perf_counter() - t0)
 
 
 def as_int32(planes) -> torch.Tensor:
@@ -418,85 +657,99 @@ def _chunk_logic(rows, va, ua, vb, ub):
     return v, u
 
 
-def _slot(tab, hi: int, lo: int, li: int):
-    """Flat slot indices (int64) of chunk li from a hi/lo row pair."""
-    s = slice(li * CHUNK, (li + 1) * CHUNK)
-    return (tab[hi, s] * CHUNK + tab[lo, s]).long()
+def _op_rows(op):
+    """The mask rows ``_chunk_logic`` reads, (16, G) int32, from the
+    records' op field."""
+    rows = op.new_zeros((_N_ROWS, op.shape[0]))
+    for r, bit in ((_R_INVA, 0), (_R_INVB, 1), (_R_INVO, 2)):
+        rows[r] = -((op >> bit) & 1)
+    core = op >> _OP_CORE_SHIFT
+    for c in range(1, _N_CORES):
+        rows[_R_CORE0 + c - 1] = -(core == c).to(op.dtype)
+    return rows
 
 
-def _comb_pass(V, U, tab, n: int):
-    for li in range(n):
-        rows = tab[:, li * CHUNK:(li + 1) * CHUNK]
-        a = _slot(tab, _R_AHI, _R_ALO, li)
-        b = _slot(tab, _R_BHI, _R_BLO, li)
-        o = _slot(tab, _R_OHI, _R_OLO, li)
-        v, u = _chunk_logic(rows, V[:, a], U[:, a], V[:, b], U[:, b])
-        valid = rows[_R_VALID]
-        V[:, o] = v & valid
-        U[:, o] = u & valid
+def _pass_args(rec, off, zero: bool):
+    """A pass's operands for :func:`_level_pass`, made once per run."""
+    return ([rec[:, i].long() for i in range(3)], _op_rows(rec[:, 3]),
+            off.tolist(), zero)
 
 
-def _ff_pass(V, U, ff, c0: int, c1: int):
-    """One FF segment: every gather reads the frozen pre-segment planes."""
-    Vp, Up = V.clone(), U.clone()
+def _level_pass(V, U, slots, rows, off, zero: bool, trash: int):
+    """One combinational pass, level by level: every gate of a level
+    gathers, computes and stores (no gate of a level reads a slot that
+    another of its gates writes)."""
+    if zero:
+        V[:, trash] = 0
+        U[:, trash] = 0
+    a, b, o = slots
+    for lo, hi in zip(off[:-1], off[1:]):
+        s = slice(lo, hi)
+        v, u = _chunk_logic(rows[:, s], V[:, a[s]], U[:, a[s]],
+                            V[:, b[s]], U[:, b[s]])
+        V[:, o[s]] = v
+        U[:, o[s]] = u
+
+
+def _ff_pass(V, U, rec, zero: bool, trash: int):
+    """One FF segment: every flip-flop gathers before any stores."""
+    d, c, r, q, lc = (rec[:, i].long() for i in range(5))
+    ren = rec[:, 5]
 
     def eff(idx):
-        v, u = Vp[:, idx], Up[:, idx]
+        v, u = V[:, idx], U[:, idx]
         return v & ~u, u
 
-    for li in range(c0, c1):
-        rows = ff[:, li * CHUNK:(li + 1) * CHUNK]
-        q = _slot(ff, _F_QHI, _F_QLO, li)
-        lc = _slot(ff, _F_LHI, _F_LLO, li)
-        dv, du = eff(_slot(ff, _F_DHI, _F_DLO, li))
-        cv, cu = eff(_slot(ff, _F_CHI, _F_CLO, li))
-        qv, qu = Vp[:, q], Up[:, q]
-        lcv, lcu = Vp[:, lc], Up[:, lc]
-        rise = (~lcv & ~lcu) & (cv & ~cu)
-        known = ~cu
-        lcv2 = (lcv & ~known) | (cv & known)
-        lcu2 = lcu & ~known
-        qv = (qv & ~rise) | (dv & rise)
-        qu = (qu & ~rise) | (du & rise)
-        # async reset-low overlay, gated per-gate by rst_en
-        av, au = eff(_slot(ff, _F_RHI, _F_RLO, li))
-        ren = rows[_F_RSTEN]
-        a_l = ~av & ~au & ren
-        a_x = au & ren
-        qv = qv & ~a_l & ~a_x
-        qu = (qu & ~a_l) | a_x
-        valid = rows[_F_VALID]
-        V[:, q] = qv & valid
-        U[:, q] = qu & valid
-        V[:, lc] = lcv2 & valid
-        U[:, lc] = lcu2 & valid
+    dv, du = eff(d)
+    cv, cu = eff(c)
+    av, au = eff(r)
+    qv, qu = V[:, q], U[:, q]
+    lcv, lcu = V[:, lc], U[:, lc]
+    rise = (~lcv & ~lcu) & (cv & ~cu)
+    known = ~cu
+    lcv2 = (lcv & ~known) | (cv & known)
+    lcu2 = lcu & ~known
+    qv = (qv & ~rise) | (dv & rise)
+    qu = (qu & ~rise) | (du & rise)
+    # async reset-low overlay, gated per flip-flop by rst_en
+    a_l = ~av & ~au & ren
+    a_x = au & ren
+    qv = qv & ~a_l & ~a_x
+    qu = (qu & ~a_l) | a_x
+    V[:, q], U[:, q] = qv, qu
+    V[:, lc], U[:, lc] = lcv2, lcu2
+    if zero:
+        V[:, trash] = 0
+        U[:, trash] = 0
 
 
 def run_turbo_plain(plan: TurboPlan, state0, FVp, FUp, watch=None):
-    """Plain torch tick loop; arguments and result as :func:`run_turbo`
-    (forced planes already padded to ``nf_pad``)."""
+    """Plain torch tick loop over the schedule; arguments and result as
+    :func:`run_turbo` (forced planes already padded to ``nf_pad``)."""
+    sc = plan.schedule
     tabs = plan.tables(state0.device)
     V = state0[:, 0].clone()
     U = state0[:, 1].clone()
     B, T = FVp.shape[0], FVp.shape[1]
-    f = (tabs["f_hi"] * CHUNK + tabs["f_lo"]).long()
+    f = tabs["f_slot"].long()
+    cone = _pass_args(tabs["cone_rec"], sc.cone_off, sc.cone_zero)
+    full = _pass_args(tabs["full_rec"], sc.full_off, sc.full_zero)
+    segs = [(tabs["ff_rec"][s0:s1], bool(z)) for s0, s1, z in sc.ff_seg]
     w = None if watch is None else watch.long()
     width = plan.K if w is None else len(w)
     hv = state0.new_empty((B, T, width))
     hu = state0.new_empty((B, T, width))
     for t in range(T):
-        # 1. forced INPUT values, 128 slots at a time
-        for c0 in range(0, plan.nf_pad, CHUNK):
-            s = slice(c0, c0 + CHUNK)
-            V[:, f[s]] = FVp[:, t, s]
-            U[:, f[s]] = FUp[:, t, s]
+        # 1. forced INPUT values (padding stores 0 to the trash slot)
+        V[:, f] = FVp[:, t]
+        U[:, f] = FUp[:, t]
         # 2. pre-sequential settle of the forced-input cone
-        _comb_pass(V, U, tabs["cone"], plan.n_cone)
+        _level_pass(V, U, *cone, plan.trash)
         # 3. flip-flops, one frozen snapshot per IR segment
-        for c0, c1 in plan.ff_ranges:
-            _ff_pass(V, U, tabs["ff"], c0, c1)
+        for rec, zero in segs:
+            _ff_pass(V, U, rec, zero, plan.trash)
         # 4. full combinational settle
-        _comb_pass(V, U, tabs["full"], plan.n_full)
+        _level_pass(V, U, *full, plan.trash)
         hv[:, t] = V if w is None else V[:, w]
         hu[:, t] = U if w is None else U[:, w]
     return hv, hu
@@ -506,10 +759,16 @@ def run_turbo_plain(plan: TurboPlan, state0, FVp, FUp, watch=None):
 # the wrapper
 # ---------------------------------------------------------------------------
 
+# threads of the kernel's block (one block per instance) and the width of
+# its rows: ops/csrc/turbo.cu's THREADS, which the kernel is built for
+THREADS = 256
+
+
 def state_words(plan: TurboPlan) -> int:
-    """32-bit words of one instance's working state: V and U planes plus
-    the FF segment buffer (4 words per FF slot of the largest segment)."""
-    return 2 * plan.K + plan.max_seg_chunks * CHUNK * 4
+    """32-bit words of one instance's working state in the kernel: V and
+    U planes plus the FF segment buffer (4 words per flip-flop of the
+    largest segment)."""
+    return 2 * plan.K + 4 * plan.schedule.max_seg_ffs
 
 
 def _check(plan, state0, FV, FU):
@@ -550,6 +809,7 @@ def run_turbo(plan: TurboPlan, state0, FV, FU, watch=None,
     memory; ``_force_global`` takes the latter for any design, so that
     the card tests can hold both placements against the plain version."""
     _check(plan, state0, FV, FU)
+    plan.schedule                     # raises where the tables fail its checks
     dev = state0.device
     w = None
     if watch is not None:
@@ -578,13 +838,15 @@ def _launch(plan, state0, FVp, FUp, w, force_global):
     width = plan.K if w is None else len(w)
     hv = torch.empty((B, T, width), dtype=torch.int32, device=dev)
     hu = torch.empty_like(hv)
+    sc = plan.schedule
     words = state_words(plan)
     with torch.cuda.device(dev):
         limit = lib.pe_turbo_smem_limit()
         if limit < 0:
             raise RuntimeError(f"pe_turbo_smem_limit failed: CUDA error "
                                f"{-limit}")
-        in_global = force_global or 4 * words > limit
+        in_global = force_global or lib.pe_turbo_shared_bytes(
+            words, 0) > limit
         if in_global:
             scratch = torch.empty((B, words), dtype=torch.int32, device=dev)
         else:
@@ -594,15 +856,14 @@ def _launch(plan, state0, FVp, FUp, w, force_global):
         wp = 0 if w is None else w.data_ptr()
         err = lib.pe_turbo_run(
             state0.data_ptr(), FVp.data_ptr(), FUp.data_ptr(),
-            tabs["f_hi"].data_ptr(), tabs["f_lo"].data_ptr(),
-            tabs["cone"].data_ptr(), tabs["full"].data_ptr(),
-            tabs["ff"].data_ptr(), tabs["ff_ranges"].data_ptr(), wp,
+            tabs["f_slot"].data_ptr(), tabs["cone"].data_ptr(),
+            tabs["full"].data_ptr(), tabs["ff_rec"].data_ptr(),
+            tabs["ff_seg"].data_ptr(), wp,
             hv.data_ptr(), hu.data_ptr(), scratch.data_ptr(),
-            B, T, plan.K, plan.nf_pad,
-            plan.cone_tab.shape[1], plan.n_cone,
-            plan.full_tab.shape[1], plan.n_full,
-            plan.ff_tab.shape[1], len(plan.ff_ranges),
-            plan.max_seg_chunks, width,
+            B, T, plan.K, words, plan.nf_pad,
+            len(tabs["cone"]) // THREADS, len(tabs["full"]) // THREADS,
+            len(sc.ff_seg), width, plan.trash,
+            int(sc.cone_zero) | int(sc.full_zero) << 1,
             1 if in_global else 0, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"pe_turbo_run failed to launch: CUDA error {err} "

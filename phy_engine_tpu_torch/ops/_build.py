@@ -116,7 +116,9 @@ def load_library() -> ctypes.CDLL:
     lib.pe_lu_block_inverse32.restype = i
     lib.pe_turbo_smem_limit.argtypes = []
     lib.pe_turbo_smem_limit.restype = i
-    lib.pe_turbo_run.argtypes = [p] * 13 + [i] * 13 + [p]
+    lib.pe_turbo_shared_bytes.argtypes = [i] * 2
+    lib.pe_turbo_shared_bytes.restype = ctypes.c_longlong
+    lib.pe_turbo_run.argtypes = [p] * 12 + [i] * 12 + [p]
     lib.pe_turbo_run.restype = i
     lib.pe_cuda_error_string.argtypes = [i]
     lib.pe_cuda_error_string.restype = ctypes.c_char_p

@@ -219,12 +219,76 @@ def test_turbo_kernel_matches_plain_fp16(cuda, force_global):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("force_global", [False, True],
+                         ids=["shared", "global"])
+def test_turbo_kernel_matches_plain_every_op(cuda, force_global):
+    """Every basic gate op on random X/Z words (turbo_cases.all_ops_case),
+    so that each branch of the kernel's core switch is held."""
+    plan, st0, FV, FU = turbo_cases.all_ops_case(4, 6, seed=7, device=cuda)
+    hv, hu = turbo.run_turbo(plan, st0, FV, FU, _force_global=force_global)
+    pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU))
+    torch.cuda.synchronize()
+    assert torch.equal(hv, pv) and torch.equal(hu, pu)
+
+
+@pytest.mark.cuda
 def test_turbo_kernel_matches_plain_rv32(cuda):
     plan, st0, FV, FU = turbo_cases.rv32_case(2, 8, device=cuda)
     hv, hu = turbo.run_turbo(plan, st0, FV, FU)
     pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU))
     torch.cuda.synchronize()
     assert torch.equal(hv, pv) and torch.equal(hu, pu)
+
+
+@pytest.fixture(scope="module")
+def rv32():
+    return workloads.build_rv32(device="cpu")
+
+
+def _rv32_watch(d):
+    """The signals chip_smoke.py's batched phase watches: result, done."""
+    eng = d.circuit.prepare()
+    return [eng.ir.node_sig[id(n)]
+            for n in d.ports["result"] + d.ports["done"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,seed,watched", [(1, 404, None, False),
+                                              (128, 8, 8, True)],
+                         ids=["1x404_full", "128x8_random_watch"])
+def test_turbo_kernel_matches_plain_rv32_main_shapes(cuda, rv32, B, T, seed,
+                                                     watched):
+    """RV32 through the main path's 404 ticks from reset with the full
+    history, and 128 instances each from its own random V/U start words
+    (X and Z lanes) with the batched path's watch list."""
+    plan, st0, FV, FU = turbo_cases.rv32_case(B, T, cuda, design=rv32,
+                                              seed=seed)
+    watch = _rv32_watch(rv32) if watched else None
+    hv, hu = turbo.run_turbo(plan, st0, FV, FU, watch=watch)
+    pv, pu = turbo.run_turbo_plain(plan, st0, *plan.pad_forced(FV, FU),
+                                   None if watch is None else
+                                   torch.tensor(watch, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(hv, pv) and torch.equal(hu, pu)
+
+
+@pytest.mark.cuda
+def test_turbo_kernel_is_deterministic(cuda, rv32):
+    plan, st0, FV, FU = turbo_cases.rv32_case(4, 32, cuda, design=rv32,
+                                              seed=3)
+    a = turbo.run_turbo(plan, st0, FV, FU)
+    b = turbo.run_turbo(plan, st0, FV, FU)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_turbo_wrapper_raises_on_a_schedule_that_fails_its_checks(cuda):
+    plan, st0, FV, FU = turbo_cases.fp16_case(2, 4, seed=1, device=cuda)
+    bad = turbo_cases.double_write(plan)
+    before = turbo.run_turbo.launches
+    with pytest.raises(ValueError, match="write slot"):
+        turbo.run_turbo(bad, st0, FV, FU)
+    assert turbo.run_turbo.launches == before
 
 
 @pytest.mark.cuda

@@ -28,7 +28,18 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               random systems, against its plain version and numpy, timed
               beside its plain version and the library call.  At each
               shape, each kernel's device time split by CUDA kernel
-              (torch.profiler over one call).
+              (torch.profiler over one call; lu_block's panel and update
+              launches, the GJ kernels' panel and update launches).
+              lu_block_inverse32 on the four systems at n = 96 and 160,
+              where n % 128 != 0.  Every kernel at phase 10's shape
+              (16, 1152) against its plain version and numpy (lu_block
+              on the four systems, GJ on all but block_singular).  The
+              GJ kernels past one block (a
+              thread-block cluster a lane): against their plain versions
+              and numpy at (2, 1152) and (2, 2048), repeat runs
+              bit-identical, and by the residual max|A X - I| (max|A x -
+              b| / max|b| for the solve) at (1, 4096); each timed beside
+              torch.linalg and its bound.
 3. ladder   — the 63-stage diode ladder, B = 6, 25 frozen-Newton steps,
               on the card and on the CPU (plain kernels) with the same
               params: traces within 1e-6 of max|trace|; once per refactor
@@ -76,6 +87,12 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               gj_inverse32 never; lanes 0-3 agree with a CPU run of those
               lanes (inv="block") to 1e-6, and the final x with phase 5's
               to 1e-6 of max|x|; circuit-steps/s, launches, peak memory.
+10. past 1024 — workloads.frozen_transient(stages=1151): 1152 unknowns,
+              B = 16, 10 steps, with inv="gj" and inv="block" (the GJ
+              kernels' panels and lu_block's panel rows split over
+              clusters).  Every lane converges, the two final x agree to
+              1e-6 of max|x|; refactors (inverse launches), bursts
+              (gj_solve32 launches) and circuit-steps/s for each.
 
 Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -304,7 +321,71 @@ def phase2_kernels(dev):
                 f"({100 * b_ms / t_k:.1f} % of bound), plain {t_p:.2f} ms, "
                 f"library {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             say_split(name, B, n, Ad, bd)
+    # lu_block where n % 128 != 0: one super-panel of 96, and 128 + 32
+    name = "lu_block_inverse32"
+    for B, n in ((4, 96), (4, 160)):
+        for case in CASES:
+            A, b = system(case, B, n, seed=B + n)
+            Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
+            e_plain, e_np, _err = hold(name, A, b, case, Ad, bd)
+            say(2, f"{name} B={B} n={n} {case}: rel err vs plain "
+                f"{e_plain:.3e}, vs numpy {e_np:.3e}")
+    # every kernel at the shape phase 10 gives it, (16, 1152): lu_block's
+    # panel over five blocks, the last 128 rows short; the GJ panel a
+    # cluster of two.  GJ takes no block_singular system here: its
+    # condition grows with n, and past n = 256 the plain version alone
+    # lies beyond TOL of float64 numpy on it.
+    B, n = 16, 1152
+    for case in CASES:
+        A, b = system(case, B, n, seed=B + n)
+        Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
+        for name in KERNELS:
+            if case == "block_singular" and name != "lu_block_inverse32":
+                continue
+            e_plain, e_np, _err = hold(name, A, b, case, Ad, bd)
+            say(2, f"{name} B={B} n={n} {case} (phase 10's shape): rel err "
+                f"vs plain {e_plain:.3e}, vs numpy {e_np:.3e}")
+    for name in ("gj_inverse32", "gj_solve32"):
+        gj_past_one_block(dev, name)
     return results
+
+
+def gj_past_one_block(dev, name):
+    """A GJ kernel where its panel launch is a thread-block cluster (n >
+    1024): against its plain version and numpy at (2, 1152) and (2, 2048)
+    with repeat runs bit-identical, by its residual at (1, 4096); each
+    timed beside the library call and its bound."""
+    for B, n in ((2, 1152), (2, 2048), (1, 4096)):
+        A, b = system("random", B, n, seed=B + n)
+        Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
+        if n < 4096:
+            e_plain, e_np, _err = hold(name, A, b, "random", Ad, bd)
+            same = torch.equal(run_kernel(name, Ad, bd),
+                               run_kernel(name, Ad, bd))
+            check(same, f"{name} B={B} n={n}: repeat run not bit-identical")
+            what = (f"rel err vs plain {e_plain:.3e}, vs numpy {e_np:.3e}, "
+                    "repeat run bit-identical")
+        else:
+            out = run_kernel(name, Ad, bd).double()
+            A64 = Ad.double()
+            if KERNELS[name]["inverse"]:
+                res = float((A64 @ out - torch.eye(n, device=dev,
+                                                   dtype=torch.float64))
+                            .abs().max())
+                what = f"max|A X - I| {res:.3e}"
+            else:
+                r = (A64 @ out[:, :, None])[:, :, 0] - bd.double()
+                res = float(r.abs().max() / bd.double().abs().max())
+                what = f"max|A x - b| / max|b| {res:.3e}"
+            check(res <= TOL, f"{name} B={B} n={n}: residual {res:.3e} > "
+                  f"{TOL}")
+        t_k = time_ms(lambda: run_kernel(name, Ad, bd), 3)
+        t_lib = time_ms(lambda: run_kernel(name, Ad, bd, library=True), 3)
+        b_ms, b_by = gj_bound(name, B, n)
+        say(2, f"{name} B={B} n={n} random (cluster panel): {what}; kernel "
+            f"{t_k:.4f} ms ({100 * b_ms / t_k:.1f} % of bound), library "
+            f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    say_split(name, B, n, Ad, bd)
 
 
 def gate_ops(rec):
@@ -546,6 +627,45 @@ def frozen_path(phase, dev, smi, inv, launched, idle, results):
     return x, launches
 
 
+def phase10_past_1024(dev, smi):
+    """workloads.frozen_transient at 1152 unknowns, B = 16, 10 steps, with
+    each refactor: every lane converges, both final x agree to 1e-6."""
+    stages, B, steps = 1151, 16, 10
+    xs = {}
+    for inv, refactor in (("gj", "gj_inverse32"),
+                          ("block", "lu_block_inverse32")):
+        workloads.frozen_transient(batch=B, steps=1, stages=stages,
+                                   device=dev, inv=inv)          # warm-up
+        torch.cuda.synchronize()
+        for k in KERNELS.values():
+            k["wrapper"].launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x, ok = workloads.frozen_transient(batch=B, steps=steps,
+                                           stages=stages, device=dev, inv=inv)
+        end.record()
+        torch.cuda.synchronize()
+        sec = start.elapsed_time(end) / 1e3
+        what = f"{stages}-stage ladder (inv={inv})"
+        check(tuple(x.shape) == (B, stages + 1),
+              f"{what}: x shape {tuple(x.shape)}")
+        check(bool(ok.all()), f"{what}: {int((~ok).sum())} lanes failed")
+        check(bool(torch.isfinite(x).all()), f"{what}: non-finite x")
+        n_ref = KERNELS[refactor]["wrapper"].launches
+        n_burst = gj.gj_solve32.launches
+        check(n_ref > 0, f"{what} never launched {refactor}")
+        say(10, f"{stages}-stage ladder ({stages + 1} unknowns) B={B} "
+            f"{steps} steps, inv={inv}: {sec:.3f} s, "
+            f"{B * steps / sec:.1f} circuit-steps/s on {smi}; refactors "
+            f"{n_ref} ({refactor}), bursts {n_burst} (gj_solve32)")
+        xs[inv] = x
+    rel = float((xs["block"] - xs["gj"]).abs().max() / xs["gj"].abs().max())
+    check(rel <= TRACE_TOL, f"1152 unknowns: inv=block vs inv=gj final x "
+          f"{rel:.3e} > {TRACE_TOL}")
+    say(10, f"final x, inv=block vs inv=gj: rel err {rel:.3e}")
+
+
 def main():
     # phase 0: device
     if not torch.cuda.is_available():
@@ -673,6 +793,9 @@ def main():
     check(rel9 <= TRACE_TOL, f"block path final x vs phase 5's {rel9:.3e} "
           f"> {TRACE_TOL}")
     say(9, f"final x vs phase 5's (inv=gj): rel err {rel9:.3e}")
+
+    # phase 10: the frozen transient past 1024 unknowns, both refactors
+    phase10_past_1024(dev, smi)
 
     print(smi)
     meta = {k: dict(source=v["source"], replaces=v["replaces"])

@@ -112,8 +112,10 @@ def load_library() -> ctypes.CDLL:
     lib.pe_gj_solve32.restype = i
     lib.pe_gj_inverse32.argtypes = [p] * 8 + [i, i, p]
     lib.pe_gj_inverse32.restype = i
-    lib.pe_lu_block_inverse32.argtypes = [p, p, p, p, i, i, p]
+    lib.pe_lu_block_inverse32.argtypes = [p] * 5 + [i, i, p]
     lib.pe_lu_block_inverse32.restype = i
+    lib.pe_lu_block_panel_floats.argtypes = [i, i]
+    lib.pe_lu_block_panel_floats.restype = ctypes.c_longlong
     lib.pe_turbo_smem_limit.argtypes = []
     lib.pe_turbo_smem_limit.restype = i
     lib.pe_turbo_shared_bytes.argtypes = [i] * 2

@@ -33,6 +33,15 @@
 //       rows of the live region as they were before the panel, R = O^T T,
 //       to scratch.  The copy is what makes the in-place update safe: (b)
 //       rewrites the pivot rows while other tiles still read them.
+//       For n > 1024 one block's registers cannot hold the panel, so the
+//       launch is a thread-block cluster of cs = ceil(n / 1024) blocks a
+//       lane (at most 8, the portable cluster size: n <= 8192), each
+//       owning a contiguous range of rows in its registers.  A step then
+//       takes one cluster barrier instead of the block barrier: every
+//       block publishes its warps' candidates in its own shared memory,
+//       and every warp reads all cs x 8 of them through distributed
+//       shared memory and picks the winner by the same rule, so every
+//       block takes the single-block path's decision.
 //   (b) gj_update_kernel, B x (n / 64) x (live columns / 64) blocks of 256
 //       threads, one 64 x 64 tile each: T_tile = base - G_tile R_tile with
 //       FP32 FMAs on the CUDA cores, k = 0..31 in order.
@@ -77,17 +86,23 @@
 // synchronise, allocate nothing (all scratch comes from the caller), and
 // return the first launch error.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
 #include <cstddef>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMb = 32;             // micro-panel width
 constexpr int kPanelThreads = 256;
 constexpr int kPanelWarps = kPanelThreads / 32;
-constexpr int kMaxN = 1024;         // four panel rows a thread at most
+constexpr int kMaxRpt = 4;          // panel rows a thread at most
+constexpr int kBlockRows = kMaxRpt * kPanelThreads;  // one block's rows
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kMaxN = kMaxCluster * kBlockRows;
 constexpr int kTile = 64;           // update tile: kTile x kTile outputs
 constexpr int kUpdThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kUpdBlocksPerSm = 4;  // caps registers at 64 a thread
@@ -112,19 +127,19 @@ __device__ __forceinline__ void warp_argmax(unsigned& key, int& bi) {
   key = wk;
 }
 
-// This thread's best candidate for the pivot column row[s][0] (rows t +
-// 256 s rise with s, so the first of equal keys has the smaller index),
-// then its warp's.
+// This thread's best candidate for the pivot column row[s][0] (its rows i0
+// + 256 s rise with s, so the first of equal keys has the smaller index;
+// rows at or past lim are not the block's), then its warp's.
 template <int RPT>
 __device__ __forceinline__ void warp_best(const float (&row)[RPT][kMb],
-                                          const int (&kr)[RPT], int tid,
-                                          int n, unsigned& key, int& bi) {
-  key = pivot_key(row[0][0], tid, n, kr[0]);
-  bi = tid;
+                                          const int (&kr)[RPT], int i0,
+                                          int lim, unsigned& key, int& bi) {
+  key = pivot_key(row[0][0], i0, lim, kr[0]);
+  bi = i0;
 #pragma unroll
   for (int s = 1; s < RPT; ++s) {
-    const int i = tid + s * kPanelThreads;
-    const unsigned k = pivot_key(row[s][0], i, n, kr[s]);
+    const int i = i0 + s * kPanelThreads;
+    const unsigned k = pivot_key(row[s][0], i, lim, kr[s]);
     if (k > key) {
       key = k;
       bi = i;
@@ -136,13 +151,13 @@ __device__ __forceinline__ void warp_best(const float (&row)[RPT][kMb],
 // The warp's winner publishes its row as it stands before the step, lane
 // 0 the warp's candidate.
 template <int RPT>
-__device__ __forceinline__ void publish(const float (&row)[RPT][kMb], int tid,
+__device__ __forceinline__ void publish(const float (&row)[RPT][kMb], int i0,
                                         int ln, unsigned key, int bi,
                                         float* slot_row, unsigned* slot_key,
                                         int* slot_i) {
 #pragma unroll
   for (int s = 0; s < RPT; ++s) {
-    if (tid + s * kPanelThreads == bi) {
+    if (i0 + s * kPanelThreads == bi) {
       float4* d4 = reinterpret_cast<float4*>(slot_row);
 #pragma unroll
       for (int q = 0; q < kMb / 4; ++q)
@@ -160,20 +175,34 @@ __device__ __forceinline__ void publish(const float (&row)[RPT][kMb], int tid,
 // bsrc: the solve's right-hand side before this panel (b, then Wb), null
 // for the inverse.  G: (B, n, 32); R: (B, 32, rld), filled in the update's
 // columns c0 .. n-1, and n for the solve; krow, pivd, rowof: (B, n), set
-// from scratch at k0 = 0.  Thread t owns rows t + 256 s, s < RPT.
-template <int RPT>
+// from scratch at k0 = 0.
+//
+// kCluster false (n <= 1024): one block per lane, grid B; thread t owns
+// rows t + 256 s, s < RPT.  kCluster true (n > 1024): a cluster of cs
+// blocks per lane, grid B cs; block c owns rows [c rb, min(n, (c + 1) rb))
+// and its thread t rows c rb + t + 256 s.  Each step every block publishes
+// its warps' candidates in its own shared memory, one cluster barrier, and
+// every warp of every block reduces all cs x 8 candidates (distributed
+// shared memory) by the same rule — largest key, a tie to the smaller row
+// — so every block takes the single-block path's decision, then reads the
+// winner's row from the block that owns it.
+template <int RPT, bool kCluster>
 __global__ void __launch_bounds__(kPanelThreads)
 gj_panel_kernel(const float* __restrict__ src, const float* __restrict__ bsrc,
                 float* __restrict__ G, float* __restrict__ R,
                 int* __restrict__ krow, float* __restrict__ pivd,
-                int* __restrict__ rowof, int n, int k0, int c0, int rld) {
+                int* __restrict__ rowof, int n, int k0, int c0, int rld,
+                int cs, int rb) {
   __shared__ __align__(16) float cand_row[2][kPanelWarps][kMb];
   __shared__ unsigned cand_key[2][kPanelWarps];
   __shared__ int cand_i[2][kPanelWarps];
   __shared__ int piv[kMb];
 
-  const size_t lane = blockIdx.x;
+  const int rank = kCluster ? static_cast<int>(blockIdx.x % cs) : 0;
+  const size_t lane = kCluster ? blockIdx.x / cs : blockIdx.x;
+  const int r_lo = rank * rb, lim = kCluster ? min(n, r_lo + rb) : n;
   const int tid = threadIdx.x, warp = tid >> 5, ln = tid & 31;
+  const int i0 = r_lo + tid;
   const float* S = src + lane * n * n;
 
   float row[RPT][kMb];
@@ -181,8 +210,8 @@ gj_panel_kernel(const float* __restrict__ src, const float* __restrict__ bsrc,
   float pd[RPT];
 #pragma unroll
   for (int s = 0; s < RPT; ++s) {
-    const int i = tid + s * kPanelThreads;
-    if (i < n) {
+    const int i = i0 + s * kPanelThreads;
+    if (i < lim) {
       const float4* a4 =
           reinterpret_cast<const float4*>(S + static_cast<size_t>(i) * n + k0);
 #pragma unroll
@@ -211,21 +240,44 @@ gj_panel_kernel(const float* __restrict__ src, const float* __restrict__ bsrc,
   // step ends with the next step's warp candidates, double buffered.
   unsigned key;
   int bi;
-  warp_best<RPT>(row, kr, tid, n, key, bi);
-  publish<RPT>(row, tid, ln, key, bi, cand_row[0][warp], cand_key[0] + warp,
+  warp_best<RPT>(row, kr, i0, lim, key, bi);
+  publish<RPT>(row, i0, ln, key, bi, cand_row[0][warp], cand_key[0] + warp,
                cand_i[0] + warp);
 #pragma unroll 1
   for (int j = 0; j < kMb; ++j) {
     const int buf = j & 1;
-    __syncthreads();
-
-    // every warp reduces the warps' candidates and reads the winner's row
-    unsigned bk = cand_key[buf][ln % kPanelWarps];
-    int r = cand_i[buf][ln % kPanelWarps];
-    warp_argmax(bk, r);
-    const int w = (r % kPanelThreads) >> 5;
+    const float4* p4;
+    int r;
+    if constexpr (kCluster) {
+      cg::cluster_group cl = cg::this_cluster();
+      cl.sync();
+      // lane l takes the candidates l and l + 32 (cs x 8 <= 64), then the
+      // warp reduces; the winner's row comes from the block that owns it
+      unsigned bk = 0u;
+      r = INT_MAX;
+      for (int c = ln; c < cs * kPanelWarps; c += 32) {
+        const int b = c / kPanelWarps, w = c % kPanelWarps;
+        const unsigned k = *cl.map_shared_rank(&cand_key[buf][w], b);
+        const int i = *cl.map_shared_rank(&cand_i[buf][w], b);
+        if (k > bk || (k == bk && i < r)) {
+          bk = k;
+          r = i;
+        }
+      }
+      warp_argmax(bk, r);
+      const int owner = r / rb;
+      p4 = reinterpret_cast<const float4*>(cl.map_shared_rank(
+          cand_row[buf][((r - owner * rb) % kPanelThreads) >> 5], owner));
+    } else {
+      __syncthreads();
+      // every warp reduces the warps' candidates and reads the winner's row
+      unsigned bk = cand_key[buf][ln % kPanelWarps];
+      r = cand_i[buf][ln % kPanelWarps];
+      warp_argmax(bk, r);
+      p4 = reinterpret_cast<const float4*>(
+          cand_row[buf][(r % kPanelThreads) >> 5]);
+    }
     float prow[kMb];
-    const float4* p4 = reinterpret_cast<const float4*>(cand_row[buf][w]);
 #pragma unroll
     for (int q = 0; q < kMb / 4; ++q) {
       const float4 x = p4[q];
@@ -240,7 +292,7 @@ gj_panel_kernel(const float* __restrict__ src, const float* __restrict__ bsrc,
     // the factor column, so the earlier slots accumulate G
 #pragma unroll
     for (int s = 0; s < RPT; ++s) {
-      const int i = tid + s * kPanelThreads;
+      const int i = i0 + s * kPanelThreads;
       const float f = __fmul_rn(row[s][0] / p, i == r ? 0.f : 1.f);
 #pragma unroll
       for (int q = 1; q < kMb; ++q)
@@ -253,18 +305,22 @@ gj_panel_kernel(const float* __restrict__ src, const float* __restrict__ bsrc,
     }
     if (tid == 0) piv[j] = r;
     if (j + 1 < kMb) {
-      warp_best<RPT>(row, kr, tid, n, key, bi);
-      publish<RPT>(row, tid, ln, key, bi, cand_row[buf ^ 1][warp],
+      warp_best<RPT>(row, kr, i0, lim, key, bi);
+      publish<RPT>(row, i0, ln, key, bi, cand_row[buf ^ 1][warp],
                    cand_key[buf ^ 1] + warp, cand_i[buf ^ 1] + warp);
     }
   }
-  __syncthreads();
+  // the last step's remote reads end before any block of the cluster exits
+  if constexpr (kCluster)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 
   float* Gl = G + lane * n * kMb;
 #pragma unroll
   for (int s = 0; s < RPT; ++s) {
-    const int i = tid + s * kPanelThreads;
-    if (i >= n) continue;
+    const int i = i0 + s * kPanelThreads;
+    if (i >= lim) continue;
     float4* g4 = reinterpret_cast<float4*>(Gl + static_cast<size_t>(i) * kMb);
 #pragma unroll
     for (int q = 0; q < kMb / 4; ++q)
@@ -273,15 +329,16 @@ gj_panel_kernel(const float* __restrict__ src, const float* __restrict__ bsrc,
     krow[lane * n + i] = kr[s];
     pivd[lane * n + i] = pd[s];
   }
-  if (tid < kMb) rowof[lane * n + k0 + tid] = piv[tid];
+  if (rank == 0 && tid < kMb) rowof[lane * n + k0 + tid] = piv[tid];
 
   // R: the pivot rows before the panel, over the update's columns; the
   // inverse's panel columns hold the identity, the solve's column n is b.
   // Warp w copies rows w, w + 8, w + 16 and w + 24, four columns a lane
   // (c0, n and rld are multiples of 4), all four rows' loads in flight
-  // before their stores.
+  // before their stores; the blocks of a cluster take every cs-th run of
+  // 128 columns.
   float* Rl = R + lane * kMb * rld;
-  for (int p = c0 + 4 * ln; p < n; p += 128) {
+  for (int p = c0 + 4 * ln + 128 * rank; p < n; p += 128 * cs) {
     float4 v[kMb / kPanelWarps];
 #pragma unroll
     for (int a = 0; a < kMb / kPanelWarps; ++a) {
@@ -300,7 +357,7 @@ gj_panel_kernel(const float* __restrict__ src, const float* __restrict__ bsrc,
       *reinterpret_cast<float4*>(Rl + static_cast<size_t>(q) * rld + p) = v[a];
     }
   }
-  if (bsrc != nullptr && tid < kMb)
+  if (bsrc != nullptr && rank == 0 && tid < kMb)
     Rl[static_cast<size_t>(tid) * rld + n] = bsrc[lane * n + piv[tid]];
 }
 
@@ -429,18 +486,56 @@ gj_update_kernel(const float* src, float* dst, const float* bsrc, float* bdst,
   }
 }
 
-// the panel kernel for 1 .. 4 rows a thread
+// the panel kernel for 1 .. 4 rows a thread, one block a lane; in a
+// cluster a block holds more than 512 rows, so 3 or 4 a thread
 using PanelKernel = void (*)(const float*, const float*, float*, float*, int*,
-                             float*, int*, int, int, int, int);
-const PanelKernel kPanelKernels[] = {
-    gj_panel_kernel<1>, gj_panel_kernel<2>, gj_panel_kernel<3>,
-    gj_panel_kernel<4>};
+                             float*, int*, int, int, int, int, int, int);
+const PanelKernel kPanelKernels[kMaxRpt] = {
+    gj_panel_kernel<1, false>, gj_panel_kernel<2, false>,
+    gj_panel_kernel<3, false>, gj_panel_kernel<4, false>};
+const PanelKernel kClusterKernels[2] = {gj_panel_kernel<3, true>,
+                                        gj_panel_kernel<4, true>};
+
+// One panel launch: n <= 1024 one block a lane (the rows strided over its
+// threads); above that a cluster of cs = ceil(n / 1024) blocks a lane,
+// each owning rb = ceil(n / cs) rows rounded up to a multiple of 256 (the
+// last block fewer).
+cudaError_t launch_panel(const float* src, const float* bsrc, float* G,
+                         float* R, int* krow, float* pivd, int* rowof, int B,
+                         int n, int k0, int c0, int rld, cudaStream_t s) {
+  if (n <= kBlockRows) {
+    const int rpt = (n + kPanelThreads - 1) / kPanelThreads;
+    kPanelKernels[rpt - 1]<<<B, kPanelThreads, 0, s>>>(
+        src, bsrc, G, R, krow, pivd, rowof, n, k0, c0, rld, 1, n);
+    return cudaGetLastError();
+  }
+  const int cs = (n + kBlockRows - 1) / kBlockRows;
+  const int rb =
+      ((n + cs - 1) / cs + kPanelThreads - 1) / kPanelThreads * kPanelThreads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * cs);
+  cfg.blockDim = dim3(kPanelThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kClusterKernels[rb / kPanelThreads - 3], src, bsrc, G, R, krow,
+      pivd, rowof, n, k0, c0, rld, cs, rb);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
 
 // A: (B, n, n); b: (B, n) or null (the inverse).  Scratch from the
 // caller: W (B, n, n); Wb (B, n), the solve only; G (B, n, 32); R (B, 32,
 // n) for the inverse, (B, 32, n + 4) for the solve (b in column n, rows
 // 16-byte aligned); krow, rowof (B, n) int32; pivd (B, n).  out: X (B, n,
-// n) or x (B, n).
+// n) or x (B, n).  Every offset into them is a size_t: B n n passes 2^31
+// at n = 8192, B >= 32.
 template <bool kInverse>
 cudaError_t run(const float* A, const float* b, float* W, float* Wb, float* G,
                 float* R, int* krow, float* pivd, int* rowof, float* out,
@@ -452,16 +547,15 @@ cudaError_t run(const float* A, const float* b, float* W, float* Wb, float* G,
   const long long row_tiles = n / kTile;
   const long long max_col_tiles =
       (cend - (kInverse ? 0 : kMb) + kTile - 1) / kTile;
-  if (static_cast<long long>(B) * row_tiles * max_col_tiles > INT_MAX)
+  if (static_cast<long long>(B) * row_tiles * max_col_tiles > INT_MAX ||
+      static_cast<long long>(B) * kMaxCluster > INT_MAX)
     return cudaErrorInvalidValue;
-  const int rpt = (n + kPanelThreads - 1) / kPanelThreads;
   for (int k0 = 0; k0 < n; k0 += kMb) {
     const float* src = k0 == 0 ? A : W;
     const float* bsrc = kInverse ? nullptr : (k0 == 0 ? b : Wb);
     const int c0 = kInverse ? 0 : k0 + kMb;
-    kPanelKernels[rpt - 1]<<<B, kPanelThreads, 0, s>>>(
-        src, bsrc, G, R, krow, pivd, rowof, n, k0, c0, rld);
-    cudaError_t e = cudaGetLastError();
+    cudaError_t e = launch_panel(src, bsrc, G, R, krow, pivd, rowof, B, n, k0,
+                                 c0, rld, s);
     if (e != cudaSuccess) return e;
     const long long col_tiles = (cend - c0 + kTile - 1) / kTile;
     gj_update_kernel<kInverse>

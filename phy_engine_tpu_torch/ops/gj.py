@@ -22,9 +22,10 @@ Two versions of each entry point:
 The kernel eliminates 32-wide micro-panels on chip and applies each as
 one rank-32 update (see ``csrc/gj.cu``), so it sums in another order than
 the plain version's rank-1 steps: the two agree to ``gj_cases.TOL``, not
-bit for bit, and a repeat run of the kernel is bit-identical.  It takes
-n up to ``MAX_N`` and a 16-byte aligned ``A32``; the wrapper raises
-``ValueError`` on anything else.
+bit for bit, and a repeat run of the kernel is bit-identical.  Above
+n = 1024 a panel launch is a thread-block cluster of up to eight blocks
+a lane; the kernel takes n up to ``MAX_N`` and a 16-byte aligned
+``A32``, and the wrapper raises ``ValueError`` on anything else.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 
 NB = 128          # n must be a multiple of this (the reference's panel)
 MB = 32           # the kernel's micro-panel width (csrc/gj.cu)
-MAX_N = 1024      # the largest n the kernel takes (4 panel rows a thread)
+MAX_N = 8192      # the largest n the kernel takes (a cluster of 8 blocks)
 
 _NO_PIVOT = 2 ** 30
 

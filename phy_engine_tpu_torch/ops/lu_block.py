@@ -26,11 +26,16 @@ Two versions:
   ``__init__``); any nb that divides n.
 * ``lu_block_inverse32`` — the wrapper.  A CPU tensor goes to the plain
   version; a CUDA tensor launches the hand-written kernel of
-  ``csrc/lu_block.cu`` (nb = 32 only) or raises.
+  ``csrc/lu_block.cu`` (nb = 32 only, any n % 32 == 0) or raises.
   ``lu_block_inverse32.launches`` counts the calls that reached the
   kernel.  The reference's ``lu_block_inverse32_auto`` /
   ``lu_block_inverse32_pallas`` have no counterpart: the wrapper's device
   rule takes their place.
+
+The kernel composes each 128-wide super-panel's four block steps into one
+rank-128 update (see ``csrc/lu_block.cu``), so it sums in another order
+than the plain version: the two agree to ``gj_cases.TOL``, not bit for
+bit, and a repeat run of the kernel is bit-identical.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 from .gj import _launch
 
 NB_BLOCK = 32     # diagonal block = pivot scope; the kernel's only nb
+SUPER = 128       # the kernel's widest super-panel: rows of its U^T and R
 
 _NO_PIVOT = 2 ** 30
 
@@ -117,10 +123,19 @@ def lu_block_inverse32(A32, nb: int = NB_BLOCK):
     if A32.data_ptr() % 16:
         raise ValueError("A32 must be 16-byte aligned for the CUDA kernel")
     B, n, _ = A32.shape
-    X = torch.empty((B, n, n), dtype=torch.float32, device=A32.device)
-    G = torch.empty((B, n, nb), dtype=torch.float32, device=A32.device)
-    Wb = torch.empty((B, nb, n), dtype=torch.float32, device=A32.device)
-    _launch("pe_lu_block_inverse32", A32, X, G, Wb, B, n)
+    f32 = dict(dtype=torch.float32, device=A32.device)
+    X = torch.empty((B, n, n), **f32)
+    Ut = torch.empty((B, SUPER, n), **f32)      # U^T of each super-panel
+    R = torch.empty((2, B, SUPER, n), **f32)    # its rows before it
+    # the panel's global scratch where it does not fit on chip (n > 6144)
+    from ._build import load_library
+    with torch.cuda.device(A32.device):
+        pf = load_library().pe_lu_block_panel_floats(B, n)
+    if pf < 0:
+        raise RuntimeError(f"pe_lu_block_panel_floats failed: CUDA error "
+                           f"{-pf}")
+    P = torch.empty(pf, **f32) if pf else None
+    _launch("pe_lu_block_inverse32", A32, X, Ut, R, P, B, n)
     lu_block_inverse32.launches += 1
     return X
 

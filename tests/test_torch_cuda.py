@@ -69,13 +69,17 @@ def _gj_call(fn, kind, Ad, bd):
     (4, 256, "random"), (4, 256, "mna_border"), (4, 256, "singular"),
     (4, 256, "block_singular"),
     (2, 1024, "random"), (2, 1024, "mna_border"), (2, 1024, "singular"),
-    (3, 384, "mna_border"), (2, 640, "random"), (2, 768, "singular")])
+    (3, 384, "mna_border"), (2, 640, "random"), (2, 768, "singular"),
+    (2, 1152, "random"), (2, 1152, "mna_border"), (2, 1152, "singular"),
+    (2, 2048, "random"), (1, 4096, "random")])
 @pytest.mark.parametrize("kind", ["inverse", "solve"])
 def test_gj_kernel_matches_plain_and_numpy(cuda, kind, B, n, case):
     """The blocked kernels against their plain versions and float64 numpy,
     one launch per call, at n = 256 (one panel row a thread), 384 (a
-    second row for half the threads), 640 and 768 (three rows), and 1024
-    (four rows); the global pivot search inverts the block-singular lane.
+    second row for half the threads), 640 and 768 (three rows), 1024
+    (four rows), and past one block: a cluster of two blocks at 1152 (768
+    and 384 rows) and 2048, four at 4096; the global pivot search inverts
+    the block-singular lane.
     (That lane's condition number grows with n: at
     n = 1024 it is 5.6e4 and the plain version alone lies 2e-4 from
     float64 numpy, beyond TOL, so the case runs at n = 256.)"""
@@ -112,16 +116,48 @@ def test_gj_kernel_is_deterministic(cuda, kind):
 
 
 @pytest.mark.cuda
-def test_gj_wrappers_reject_what_the_kernel_does_not_take(cuda):
-    A, b = system("random", 1, 1152)
+@pytest.mark.parametrize("kind", ["inverse", "solve"])
+def test_gj_cluster_kernel_is_deterministic(cuda, kind):
+    A, b = system("random", 2, 2048, seed=6)
     Ad, bd = torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda)
-    with pytest.raises(ValueError, match="n <= 1024"):
+    kern, _plain = GJ_KERNELS[kind]
+    assert torch.equal(_gj_call(kern, kind, Ad, bd),
+                       _gj_call(kern, kind, Ad, bd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["inverse", "solve"])
+@pytest.mark.parametrize("n", [6144, 8192])
+def test_gj_cluster_kernel_residual_at_six_and_eight_blocks(cuda, kind, n):
+    """Clusters of six and eight blocks (8192, the largest n the kernels
+    take) on one random lane, by the residual in float64: max|A X - I|
+    for the inverse, max|A x - b| / max|b| for the solve."""
+    A, b = system("random", 1, n, seed=n)
+    Ad, bd = torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda)
+    out = _gj_call(GJ_KERNELS[kind][0], kind, Ad, bd).double()
+    A64 = Ad.double()
+    if kind == "inverse":
+        eye = torch.eye(n, dtype=torch.float64, device=cuda)
+        res = float((A64 @ out - eye).abs().max())
+    else:
+        r = (A64 @ out[:, :, None])[:, :, 0] - bd.double()
+        res = float(r.abs().max() / bd.double().abs().max())
+    assert res <= TOL, res
+
+
+@pytest.mark.cuda
+def test_gj_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    n = gj.MAX_N + gj.NB                        # 8320: past 8 blocks of 1024
+    Ad = torch.zeros((1, n, n), device=cuda)
+    bd = torch.zeros((1, n), device=cuda)
+    with pytest.raises(ValueError, match="n <= 8192"):
         gj.gj_inverse32(Ad)
-    with pytest.raises(ValueError, match="n <= 1024"):
+    with pytest.raises(ValueError, match="n <= 8192"):
         gj.gj_solve32(Ad, bd)
+    A, _b = system("random", 1, 128)
     buf = torch.empty(128 * 128 + 4, device=cuda)
     shifted = buf[1:1 + 128 * 128].view(1, 128, 128)
-    shifted.copy_(Ad[:, :128, :128])
+    shifted.copy_(torch.from_numpy(A).to(cuda))
     with pytest.raises(ValueError, match="aligned"):
         gj.gj_inverse32(shifted)
 
@@ -129,7 +165,8 @@ def test_gj_wrappers_reject_what_the_kernel_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "mna_border", "singular",
                                   "block_singular"])
-@pytest.mark.parametrize("B,n", [(8, 128), (4, 256), (2, 1024)])
+@pytest.mark.parametrize("B,n", [(8, 128), (4, 256), (2, 1024), (4, 96),
+                                 (4, 160), (2, 512)])
 def test_lu_block_kernel_matches_plain(cuda, B, n, case):
     A, _b = system(case, B, n, seed=B + n)
     Ad = torch.from_numpy(A).to(cuda)
@@ -149,6 +186,44 @@ def test_lu_block_kernel_matches_plain(cuda, B, n, case):
     if bad:
         assert not np.isfinite(k[s]).all()
         assert not np.isfinite(p[s]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "mna_border", "singular",
+                                  "block_singular"])
+@pytest.mark.parametrize("n", [96, 160, 256, 1024])
+def test_lu_block_kernel_repeat_runs_are_bit_identical(cuda, n, case):
+    """One super-panel of 96 (n % 128 != 0), 128 + 32, 2 x 128, and eight
+    super-panels split over a cluster of four blocks."""
+    A, _b = system(case, 2, n, seed=n + 1)
+    Ad = torch.from_numpy(A).to(cuda)
+    a = lu_block.lu_block_inverse32(Ad)
+    b = lu_block.lu_block_inverse32(Ad)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.nan_to_num(a, 1.0, 2.0, 3.0),
+                       torch.nan_to_num(b, 1.0, 2.0, 3.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2080, 6144, 6176])
+def test_lu_block_kernel_past_the_widest_on_chip_panel(cuda, n):
+    """The kernel's plans past n = 2048 (one lane, random): 64-wide
+    super-panels at 2080, 32-wide at 6144 (the largest panel on chip),
+    and at 6176 the panel in global scratch with 128-wide super-panels,
+    the last one 32 wide.  Against the plain version on the card and
+    float64 numpy; a repeat run bit-identical."""
+    A, _b = system("random", 1, n, seed=n)
+    Ad = torch.from_numpy(A).to(cuda)
+    k = lu_block.lu_block_inverse32(Ad)
+    again = lu_block.lu_block_inverse32(Ad)
+    p = lu_block.lu_block_inverse32_plain(Ad)
+    torch.cuda.synchronize()
+    assert torch.equal(k, again)
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    assert np.isfinite(k).all()
+    assert lane_rel_err(k, p).max() <= TOL
+    ref = np.linalg.inv(A.astype(np.float64))
+    assert lane_rel_err(k, ref).max() <= TOL
 
 
 @pytest.mark.cuda
@@ -195,6 +270,28 @@ def test_frozen_transient_card_matches_cpu(cuda, inv):
         assert bool(ok.all())
         traces.append(tr.cpu())
     rel = (traces[1] - traces[0]).abs().max() / traces[0].abs().max()
+    assert rel <= 1e-6, float(rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inv", ["gj", "block"])
+def test_frozen_transient_past_1024_unknowns_card_matches_cpu(cuda, inv):
+    """The 1151-stage ladder (1152 unknowns: the GJ panel launches are
+    clusters, lu_block's panel rows split over five blocks), B = 2, 3
+    steps: every lane converges, card against CPU to 1e-6."""
+    ir = workloads.build_diode_ladder(1151)
+    params = batch_params(ir, 2, jitter={"R": {"r": 0.05}},
+                          generator=torch.Generator().manual_seed(12))
+    out = []
+    for dev in ("cpu", cuda):
+        x, _st, ok = analog.transient_batched(
+            ir, {k: v.to(dev) for k, v in params.items()},
+            batch_x(ir, 2, dev), batch_state(ir, 2, dev),
+            workloads.default_env(), 0.0, workloads.DT, 3, solver="frozen",
+            inv=inv)[:3]
+        assert bool(ok.all())
+        out.append(x.cpu())
+    rel = (out[1] - out[0]).abs().max() / out[0].abs().max()
     assert rel <= 1e-6, float(rel)
 
 

@@ -93,6 +93,22 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               clusters).  Every lane converges, the two final x agree to
               1e-6 of max|x|; refactors (inverse launches), bursts
               (gj_solve32 launches) and circuit-steps/s for each.
+11. Circuit — the analog Circuit driver on the same 255-stage ladder
+              (workloads.diode_ladder_netlist, 256 unknowns), every solve
+              the per-lane dense f64 Newton (ops/linsolve.py::
+              lu_solve_gauss, torch ops, no hand kernel): (a) OP, TR for
+              100 steps of 50 ns, ACOP over 101 log-spaced points from
+              2π·1 kHz to 2π·1 GHz (the split-real 512 x 512 system);
+              (b) monte_carlo, 5 % R jitter, 256 lanes, TR for 100 steps
+              of 50 ns; (c) temp_sweep over 256 temperatures from -40 to
+              125 °C.  Each analysis ok and every lane converged; the
+              card against the CPU path on (a)'s OP and first 10 TR steps,
+              (b)'s lanes 0-3 over their first 10 steps and (c)'s lanes
+              0-3, within 1e-6 of max|trace| (and three of (a)'s AC points
+              on the card's own bias point).  Prints each analysis's wall
+              (CUDA events), the lu_solve_gauss calls in it and their mean
+              time (CUDA events around each call), and (b)'s
+              circuit-steps/s.
 
 Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -109,12 +125,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from phy_engine_tpu_torch import workloads
+from phy_engine_tpu_torch import ACSweepType, AnalyzeType, Circuit, workloads
 from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
-from phy_engine_tpu_torch.ops import _build, gj, lu_block
+from phy_engine_tpu_torch.ops import _build, gj, linsolve, lu_block
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
-from phy_engine_tpu_torch.parallel.batch import batch_params, batch_state, batch_x
+from phy_engine_tpu_torch.parallel.batch import (batch_params, batch_state,
+                                                 batch_x, batched_op,
+                                                 batched_transient)
 
 # inverse: the function is A -> A^-1 (else (A, b) -> x); fails_on: the
 # gj_cases systems whose bad lane the kernel must leave non-finite
@@ -472,7 +490,7 @@ def turbo_split(dev, rv32, ticks):
 
 def rv32_watch(rv32):
     """The signals phase 8 watches: the result bus and done."""
-    eng = rv32.circuit.prepare()
+    eng = rv32.circuit.digital_engine()
     return [eng.ir.node_sig[id(n)]
             for n in rv32.ports["result"] + rv32.ports["done"]]
 
@@ -666,6 +684,160 @@ def phase10_past_1024(dev, smi):
     say(10, f"final x, inv=block vs inv=gj: rel err {rel:.3e}")
 
 
+class GaussCalls:
+    """Counts and times ``ops/linsolve.py::lu_solve_gauss`` (the dense
+    f64 solve of the Circuit driver, reached through ``dense_solve``):
+    CUDA events around each call, read after the run."""
+
+    def __init__(self):
+        self.orig = linsolve.lu_solve_gauss
+        self.events = []
+
+    def __enter__(self):
+        linsolve.lu_solve_gauss = self._call
+        return self
+
+    def __exit__(self, *exc):
+        linsolve.lu_solve_gauss = self.orig
+
+    def _call(self, A, b):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = self.orig(A, b)
+        ev[1].record()
+        self.events.append(ev)
+        return out
+
+    def take(self):
+        """(calls, mean ms a call) since the last take."""
+        torch.cuda.synchronize()
+        n = len(self.events)
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return n, (ms / n if n else 0.0)
+
+
+def timed(fn):
+    """(fn's result, wall s by CUDA events after a synchronize)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def phase11_circuit(dev, smi, stages=workloads.N_STAGES, lanes=256,
+                    steps=100, temps=256, n_check=10):
+    """The analog Circuit driver on the diode ladder (see the module
+    docstring, phase 11)."""
+    dt = workloads.DT
+    n = stages + 1
+    c = Circuit(workloads.diode_ladder_netlist(stages), device=dev)
+    ref = Circuit(workloads.diode_ladder_netlist(stages), device="cpu")
+    env = c._env_scalars()
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return torch.as_tensor(tree).cpu()
+
+    def held(what, card, host):
+        rel = float(np.abs(card - host).max()
+                    / (np.abs(host).max() or 1.0))     # all-zero: absolute
+        check(rel <= TRACE_TOL,
+              f"{what}: card vs CPU {rel:.3e} > {TRACE_TOL}")
+        return rel
+
+    with GaussCalls() as gauss:
+        def report(what, sec, extra=""):
+            calls, ms = gauss.take()
+            say(11, f"{what}: wall {sec:.3f} s on {smi}; lu_solve_gauss "
+                f"{calls} calls, {ms:.3f} ms a call ({calls * ms / 1e3:.3f}"
+                f" s){extra}")
+
+        # (a) one circuit: OP, TR, ACOP
+        c.set_analyze_type(AnalyzeType.OP)
+        ok, sec = timed(c.analyze)
+        check(ok, "Circuit OP failed")
+        x_op = c._x.cpu().numpy()
+        report(f"(a) OP, {n} unknowns", sec)
+        c.tr.t_step, c.tr.t_stop = dt, steps * dt
+        c.set_analyze_type(AnalyzeType.TR)
+        ok, sec = timed(c.analyze)
+        check(ok and c.tr_history.shape == (steps, n)
+              and np.isfinite(c.tr_history).all(), f"Circuit TR: ok {ok}")
+        report(f"(a) TR, {steps} steps of {dt:g} s", sec,
+               f", {steps / sec:.1f} circuit-steps/s")
+        ref.set_analyze_type(AnalyzeType.OP)
+        check(ref.analyze(), "CPU Circuit OP failed")
+        ref_op = ref._x.numpy()
+        ref.tr.t_step, ref.tr.t_stop = dt, n_check * dt
+        ref.set_analyze_type(AnalyzeType.TR)
+        check(ref.analyze(), "CPU Circuit TR failed")
+        gauss.take()
+        rel_a = held("(a) OP and TR",
+                     np.vstack([x_op, c.tr_history[:n_check]]),
+                     np.vstack([ref_op, ref.tr_history]))
+        c.ac.sweep = ACSweepType.LOG
+        c.ac.omega_start, c.ac.omega_stop = 2 * np.pi * 1e3, 2 * np.pi * 1e9
+        c.ac.points = 101
+        c.set_analyze_type(AnalyzeType.ACOP)
+        ok, sec = timed(c.analyze)
+        xs = np.stack([x for _w, x in c.ac_sweep_results])
+        check(ok and xs.shape == (101, n) and np.isfinite(xs).all(),
+              f"Circuit ACOP: ok {ok}")
+        report(f"(a) ACOP, {len(xs)} points, a {2 * n} x {2 * n} real "
+               "system each", sec)
+        pick = [0, 50, 100]
+        w = torch.tensor([c.ac_sweep_results[k][0] for k in pick],
+                         dtype=torch.float64)
+        re, im = analog.ac_sweep(c._ir, cpu(c._params()), cpu(c._states), w)
+        gauss.take()
+        rel_ac = held("(a) AC points 0, 50, 100", xs[pick],
+                      re.numpy() + 1j * im.numpy())
+        say(11, f"(a) card vs CPU: OP and TR steps 1-{n_check} {rel_a:.3e}, "
+            f"AC points 0, 50, 100 {rel_ac:.3e}")
+
+        # (b) Monte-Carlo transient: one lane a circuit
+        mc = dict(jitter={"R": {"r": workloads.R_JITTER}}, n=lanes,
+                  generator=torch.Generator().manual_seed(0), analysis="tr",
+                  t_stop=steps * dt, t_step=dt)
+        res, sec = timed(lambda: c.monte_carlo(**mc))
+        check(res.history.shape == (lanes, steps, n)
+              and np.isfinite(res.history).all(), "MC TR: non-finite trace")
+        check(bool(res.ok.all()), f"MC TR: {int((~res.ok).sum())} of "
+              f"{lanes} lanes failed")
+        report(f"(b) monte_carlo TR, {lanes} lanes x {steps} steps", sec,
+               f", {lanes * steps / sec:.1f} circuit-steps/s")
+        ir = ref.prepare()
+        p4 = {k: torch.as_tensor(v[:4]) for k, v in res.params.items()}
+        _x, _st, ok4, xs4 = batched_transient(
+            ir, p4, batch_x(ir, 4, "cpu"), batch_state(ir, 4, "cpu"), env,
+            0.0, dt, n_check, keep_trace=True)
+        gauss.take()
+        check(bool(ok4.all()), "MC TR: a CPU lane failed")
+        rel_b = held("(b) lanes 0-3", res.history[:4, :n_check], xs4.numpy())
+
+        # (c) temperature sweep: one OP a lane
+        t_grid = np.linspace(-40.0, 125.0, temps)
+        res, sec = timed(lambda: c.temp_sweep(t_grid))
+        check(bool(res.ok.all()) and np.isfinite(res.x).all(),
+              f"temp_sweep: {int((~res.ok).sum())} of {temps} lanes failed")
+        report(f"(c) temp_sweep, {temps} temperatures", sec)
+        p4 = {k: torch.as_tensor(v[:4]) for k, v in res.params.items()}
+        x4, _st, ok4 = batched_op(ir, p4, batch_x(ir, 4, "cpu"),
+                                  batch_state(ir, 4, "cpu"), env)
+        gauss.take()
+        check(bool(ok4.all()), "temp_sweep: a CPU lane failed")
+        rel_c = held("(c) lanes 0-3", res.x[:4], x4.numpy())
+    say(11, f"card vs CPU: (b) lanes 0-3 steps 1-{n_check} {rel_b:.3e}, "
+        f"(c) lanes 0-3 {rel_c:.3e}")
+
+
 def main():
     # phase 0: device
     if not torch.cuda.is_available():
@@ -796,6 +968,11 @@ def main():
 
     # phase 10: the frozen transient past 1024 unknowns, both refactors
     phase10_past_1024(dev, smi)
+
+    # phase 11: the analog Circuit driver at the ladder's full width
+    t0 = time.perf_counter()
+    phase11_circuit(dev, smi)
+    say(11, f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     print(smi)
     meta = {k: dict(source=v["source"], replaces=v["replaces"])

@@ -32,3 +32,12 @@ torch.set_float32_matmul_precision("highest")
 
 F64 = torch.float64      # analog state, stamps, residuals
 F32 = torch.float32      # dense factor path
+
+__version__ = "0.1.0"
+
+from .netlist.netlist import Netlist, Node, ModelInstance  # noqa: E402,F401
+from .netlist import operations as netops  # noqa: E402,F401
+from .engine.circuit import (Circuit, AnalyzeType, ACSweepType,  # noqa: E402,F401
+                             ACSettings, TRSettings)
+from .engine.environment import Environment  # noqa: E402,F401
+from . import models  # noqa: E402,F401

@@ -36,7 +36,7 @@ def fp16_case(B: int, T: int, seed: int, device):
     input of every tick."""
     c, _ins, _pn, _rep = workloads.synth_top(workloads.FP16_ADD_SRC,
                                              "fp16_add", "cpu")
-    eng = c.prepare()
+    eng = c.digital_engine()
     _e, fs, _FV, _FU = c._compile_schedule([{}])
     plan = eng.plan(fs)
     rng = np.random.default_rng(seed)
@@ -56,7 +56,7 @@ def rv32_case(B: int, T: int, device, design=None, seed=None):
     every signal slot."""
     d = design if design is not None else workloads.build_rv32("cpu")
     c = d.circuit
-    eng = c.prepare()
+    eng = c.digital_engine()
     eng.reset_state()
     reset, body = workloads.rv32_schedules(d, (T + 1) // 2)
     _e, fs, FV, FU = c._compile_schedule((reset + body)[:T])

@@ -1,6 +1,8 @@
-"""Batched analog engine: sparse MNA assembly, masked Newton solvers and
-the fixed-step transient (port of the batched half of
-``phy_engine_tpu/engine/analog.py``).
+"""Batched analog engine (port of ``phy_engine_tpu/engine/analog.py``):
+MNA assembly (sparse, dense f64 and AC), the per-lane dense Newton and
+transients of the ``Circuit`` driver, the AC sweep, and the explicit-batch
+masked Newton solvers with the frozen-preconditioner transient of the
+Monte-Carlo main path.
 
 Everything takes a leading batch dimension B (Monte-Carlo lanes of one
 topology): ``params`` is ``{family: (B, n_inst, n_params)}``, ``x``
@@ -30,7 +32,7 @@ import torch
 from .. import F32, F64
 from ..models.base import StampCtx
 from ..ops.gj import NB, gj_inverse32, gj_solve32
-from ..ops.linsolve import lu_solve_gauss
+from ..ops.linsolve import dense_solve, lu_solve_gauss
 from ..ops.lu_block import lu_block_inverse32
 from .lower import AnalogIR
 
@@ -41,19 +43,21 @@ MAX_NEWTON_ITER = 64      # circuit.h:898
 # parameter/state helpers
 # ---------------------------------------------------------------------------
 
-def initial_params(ir: AnalogIR, device="cuda") -> Dict[str, torch.Tensor]:
-    return {f.mdef.id_name: torch.as_tensor(f.P, dtype=F64, device=device)
+def initial_params(ir: AnalogIR, device="cuda",
+                   dtype=F64) -> Dict[str, torch.Tensor]:
+    return {f.mdef.id_name: torch.as_tensor(f.P, dtype=dtype, device=device)
             for f in ir.families}
 
 
-def initial_state(ir: AnalogIR, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    return {f.mdef.id_name: {k: torch.as_tensor(v, dtype=F64, device=device)
+def initial_state(ir: AnalogIR, device="cuda",
+                  dtype=F64) -> Dict[str, Dict[str, torch.Tensor]]:
+    return {f.mdef.id_name: {k: torch.as_tensor(v, dtype=dtype, device=device)
                              for k, v in f.state0.items()}
             for f in ir.families}
 
 
-def initial_x(ir: AnalogIR, device="cuda") -> torch.Tensor:
-    return torch.zeros(ir.n_unknowns, dtype=F64, device=device)
+def initial_x(ir: AnalogIR, device="cuda", dtype=F64) -> torch.Tensor:
+    return torch.zeros(ir.n_unknowns, dtype=dtype, device=device)
 
 
 def env_scalars(env) -> Dict[str, float]:
@@ -280,13 +284,14 @@ def _cat(parts, like):
     return like.new_zeros((like.shape[0], 0))
 
 
-def _assemble_dense64(ir: AnalogIR, params, x, states, ctx):
-    """Dense f64 (B, n, n) system: the sparse assembly scattered in entry
-    order — the same sums, in the same order, as the JAX package's dense
-    ``assemble`` (families, then gmin, then drive slots)."""
+def assemble(ir: AnalogIR, params, x, states, ctx):
+    """Dense (B, n, n) system, (B, n) RHS and the new device states: the
+    sparse assembly scattered in entry order — the same sums, in the same
+    order, as the JAX package's dense ``assemble`` (families, then gmin,
+    then drive slots)."""
     n = ir.n_unknowns
     _r, _c, vals, Z, st2 = assemble_sparse(ir, params, x, states, ctx)
-    A = _plan(ir, "dense", n).sum(vals).reshape(-1, n, n)
+    A = _plan(ir, "dense", n).sum(vals).reshape(x.shape[0], n, n)
     return A, Z, st2
 
 
@@ -320,6 +325,188 @@ def _converged(x_old, x_new, n_nodes: int, env):
     ok_v = ((xn_v - xo_v).abs() <= tol_v).all(dim=1)
     ok_i = ((xn_i - xo_i).abs() <= tol_i).all(dim=1)
     return ok_v & ok_i
+
+
+# ---------------------------------------------------------------------------
+# per-lane dense Newton and transients (the Circuit driver's path)
+#
+# The JAX package runs these unbatched and vmaps them for sweeps and
+# Monte-Carlo.  Here every lane carries its own loop condition, as under
+# vmap: a lane iterates while it has not converged, has not failed and is
+# under the budget; an iterating lane takes the iteration's new states
+# even when its solve failed (and then stops), while its x keeps the last
+# finite value.  (The explicit-batch solvers below merge states only
+# where the solve succeeded.)
+# ---------------------------------------------------------------------------
+
+def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
+                 max_iter: int = MAX_NEWTON_ITER):
+    """Newton outer loop (circuit.h:892-985) per lane: dense assembly and
+    a dense solve (``dense_solve``: the f64 Gauss-Jordan for float64).
+    Linear circuits take one solve, as the reference's
+    ``if(!has_nonlinear_device()) return solve_once()``.  (B, ...) in;
+    returns (x (B, n), states, ok (B,))."""
+    def solve_once(x, st):
+        A, Z, st2 = assemble(ir, params, x, st, ctx)
+        x_new = dense_solve(A, Z)
+        return x_new, st2, torch.isfinite(x_new).all(dim=1)
+
+    if not ir.nonlinear:
+        return solve_once(x0, states0)
+    x, st = x0, states0
+    conv = torch.zeros(x0.shape[0], dtype=torch.bool, device=x0.device)
+    ok = torch.ones_like(conv)
+    for _ in range(max_iter):
+        run = (~conv) & ok
+        if not bool(run.any()):
+            break
+        x_new, st2, ok_new = solve_once(x, st)
+        conv_new = _converged(x, x_new, ir.n_nodes, ctx.env) & ok_new
+        conv_new = conv_new & _device_converged(ir, params, x_new, st2)
+        x = torch.where((run & ok_new)[:, None], x_new, x)
+        st = _merge(run, st, st2)
+        conv = torch.where(run, conv_new, conv)
+        ok = torch.where(run, ok_new, ok)
+    return x, st, conv & ok
+
+
+def transient(ir: AnalogIR, params, x0, states0, env, t0, dt,
+              num_steps: int):
+    """Run ``num_steps`` fixed TR steps per lane from (x0, states0) at time
+    t0 (host floats; step i solves at t0 + (i+1)·dt).  A failed step keeps
+    the lane's previous solution (the reference rolls back tr_duration,
+    circuit.h:249-253) but takes its new states.
+
+    Returns (x (B, n), states, ok_all (B,), xs (B, num_steps, n))."""
+    t0, dt = float(t0), float(dt)
+    x, st = x0, states0
+    ok_all = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
+    xs = []
+    for i in range(num_steps):
+        t = t0 + (i + 1.0) * dt
+        st = step_update_all(ir, params, x, st, dt, t)
+        x_new, st, ok = newton_solve(ir, params, x, st,
+                                     StampCtx(mode="tr", t=t, dt=dt, env=env))
+        x = torch.where(ok[:, None], x_new, x)
+        ok_all = ok_all & ok
+        xs.append(x)
+    return x, st, ok_all, torch.stack(xs, dim=1)
+
+
+def transient_adaptive(ir: AnalogIR, params, x0, states0, env, t0, dt0,
+                       t_stop, max_attempts: int, dt_min):
+    """Adaptive transient of one circuit (B = 1): step-halving on Newton
+    failure, growth back toward dt0 on success (the reference declares
+    ``adapt_step`` in its TR settings but never wires it).  The JAX
+    package scans a fixed ``max_attempts`` rows; rows after ``done`` are
+    never accepted, so this loop stops there.
+
+    Returns (x, states, ok, ts (A,), xs (1, A, n), acc (A,)) over the A
+    attempts made; ok means t reached t_stop without the step underflowing
+    dt_min on a failure."""
+    if x0.shape[0] != 1:
+        raise ValueError("transient_adaptive runs one circuit (B = 1)")
+    t_stop, dt0, dt_min = float(t_stop), float(dt0), float(dt_min)
+    x, st = x0, states0
+    t, dt = float(t0), dt0
+    failed = done = False
+    ts, xs, acc = [], [], []
+    for _ in range(max_attempts):
+        if done:
+            break
+        dt_eff = min(dt, max(t_stop - t, dt_min))
+        t_new = t + dt_eff
+        st2 = step_update_all(ir, params, x, st, dt_eff, t_new)
+        x_new, st3, ok_t = newton_solve(
+            ir, params, x, st2, StampCtx(mode="tr", t=t_new, dt=dt_eff,
+                                         env=env))
+        ok = bool(ok_t[0])
+        if ok:
+            x, st, t = x_new, st3, t_new
+            dt = min(dt * 2.0, dt0)
+        else:
+            failed = dt * 0.5 < dt_min
+            dt = dt * 0.5
+        done = t >= t_stop * (1.0 - 1e-12) or failed
+        ts.append(t)
+        xs.append(x)
+        acc.append(ok)
+    xs = torch.stack(xs, dim=1) if xs else x0.new_zeros((1, 0, x0.shape[1]))
+    return (x, st, done and not failed, np.asarray(ts, np.float64), xs,
+            np.asarray(acc, bool))
+
+
+# ---------------------------------------------------------------------------
+# AC small-signal sweep: one batched solve over the omega grid, in the
+# JAX package's split-real form — (Ar + jAi)(xr + jxi) = Zr + jZi solved
+# as the 2n x 2n f64 system [[Ar, -Ai], [Ai, Ar]] [xr; xi] = [Zr; Zi].
+# ---------------------------------------------------------------------------
+
+def _ac_plan(ir: AnalogIR) -> ScatterPlan:
+    """Dense (n*n) plan of the AC pattern: every family with an AC stamp,
+    in family order, then the drive slots' identity rows."""
+    def build():
+        n = ir.n_unknowns
+        keys = [np.where((f.a_rows < n) & (f.a_cols < n),
+                         f.a_rows.astype(np.int64) * n + f.a_cols, -1)
+                .reshape(-1) for f in _ac_families(ir)]
+        base = ir.n_nodes + ir.n_branches
+        d = np.arange(base, base + ir.n_drive_slots, dtype=np.int64)
+        keys.append(d * n + d)
+        return ScatterPlan(np.concatenate(keys), n * n)
+    return _cached(ir, "ac_plan", build)
+
+
+def _ac_families(ir: AnalogIR):
+    return [f for f in ir.families if f.mdef.ac_stamp is not None]
+
+
+def _lanes(a, W: int, dims: int):
+    """``a`` with a leading lane dimension of W (expanded if absent)."""
+    return a if a.dim() > dims else a.expand((W,) + a.shape)
+
+
+def assemble_ac(ir: AnalogIR, params, states, omegas):
+    """The complex MNA system at each omega of the grid ``omegas`` (W,):
+    (Ar, Ai (W, n, n), Zr, Zi (W, n)).  ``params`` / ``states`` are one
+    circuit's (the bias point's device states) or already carry the W
+    lanes."""
+    W = omegas.shape[0]
+    n = ir.n_unknowns
+    fams = _ac_families(ir)
+    re, im, zr, zi = [], [], [], []
+    for fam in fams:
+        key = fam.mdef.id_name
+        P = _lanes(params[key], W, 2)
+        st = {k: _lanes(v, W, 1) for k, v in states.get(key, {}).items()}
+        w = omegas[:, None].expand(P.shape[:-1])
+        a_re, a_im, z_re, z_im = fam.mdef.ac_stamp(P, st, w)
+        if fam.a_rows.size:
+            re.append(a_re.reshape(W, -1))
+            im.append(a_im.reshape(W, -1))
+        if fam.z_rows.size:
+            zr.append(z_re.reshape(W, -1))
+            zi.append(z_im.reshape(W, -1))
+    if ir.n_drive_slots:
+        # keep the drive rows well-posed (identity) during AC
+        re.append(omegas.new_ones((W, ir.n_drive_slots)))
+        im.append(omegas.new_zeros((W, ir.n_drive_slots)))
+    like = omegas[:, None]
+    plan, zplan = _ac_plan(ir), _z_plan(ir, fams)
+    return (plan.sum(_cat(re, like)).reshape(W, n, n),
+            plan.sum(_cat(im, like)).reshape(W, n, n),
+            zplan.sum(_cat(zr, like)), zplan.sum(_cat(zi, like)))
+
+
+def ac_sweep(ir: AnalogIR, params, states, omegas):
+    """Solve the complex MNA at every omega of the grid in one batched
+    split-real f64 solve.  Returns (xs_re, xs_im), each (W, n)."""
+    n = ir.n_unknowns
+    Ar, Ai, Zr, Zi = assemble_ac(ir, params, states, omegas)
+    M = torch.cat([torch.cat([Ar, -Ai], dim=2),
+                   torch.cat([Ai, Ar], dim=2)], dim=1)
+    x = dense_solve(M, torch.cat([Zr, Zi], dim=1))
+    return x[:, :n], x[:, n:]
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +599,7 @@ def newton_solve_batched(ir: AnalogIR, params_b, x0_b, states0_b,
 
     def gauss_path():
         def solve_once(x_b, st_b):
-            A, Z, st2 = _assemble_dense64(ir, params_b, x_b, st_b, ctx)
+            A, Z, st2 = assemble(ir, params_b, x_b, st_b, ctx)
             x_new = lu_solve_gauss(A, Z)
             return x_new, st2, torch.isfinite(x_new).all(dim=1)
 

@@ -50,6 +50,11 @@ class AnalogIR:
     def n_unknowns(self) -> int:
         return self.n_nodes + self.n_branches + self.n_drive_slots
 
+    def index_of(self, node: Node) -> int:
+        if node.is_ground:
+            return -1
+        return self.node_index.get(id(node), -1)
+
 
 def _map_ground(idx: np.ndarray, n_total: int) -> np.ndarray:
     """Map ground (-1) to the dummy slot n_total (scatter target N)."""

@@ -1,10 +1,16 @@
-"""Device families of the port: R, C, VAC, PN junction, and the digital
-gates' metadata."""
+"""Device families of the port: every analog family of the JAX package
+but BSIM3 (linear, waveform sources, switch and relay, PN, BJT, MOSFET,
+full-bridge rectifier), and the digital gates' metadata."""
 
 from .base import (MODEL_REGISTRY, DeviceClass, ModelDef, StampCtx,  # noqa: F401
                    UpdatePhase, register)
-from .linear import CAPACITOR, RESISTANCE, VAC  # noqa: F401
-from .nonlinear import PN_JUNCTION  # noqa: F401
+from .linear import (RESISTANCE, CAPACITOR, INDUCTOR, VDC, VAC, IDC,  # noqa: F401
+                     IAC, VCVS, VCCS, CCVS, CCCS, TRANSFORMER,
+                     TRANSFORMER_CENTER_TAP, COUPLED_INDUCTORS, OP_AMP)
+from .sources import SAWTOOTH, SQUARE, PULSE, TRIANGLE  # noqa: F401
+from .nonlinear import (PN_JUNCTION, BJT_NPN, BJT_PNP, NMOSFET,  # noqa: F401
+                        PMOSFET, FULL_BRIDGE_RECTIFIER)
+from .controller import SWITCH, RELAY  # noqa: F401
 from .digital_gates import (AND, OR, NOT, YES, XOR, XNOR, NAND, NOR, IMP,  # noqa: F401
                             NIMP, INPUT, OUTPUT, TRI_STATE, RESOLVE2,
                             CASE_EQ, IS_UNKNOWN, TICK_DELAY, SCHMITT_TRIGGER,

@@ -12,6 +12,10 @@ the Monte-Carlo batch (or absent).
 * ``rhs_pattern(pins, brs)`` -> static RHS rows of one instance;
 * ``stamp(P, v, ib, state, ctx)`` -> (A_vals (..., n_inst, K),
   z_vals (..., n_inst, Kz), new_state);
+* ``ac_stamp(P, state, omega)`` -> (A_re, A_im (..., n_inst, K), z_re,
+  z_im (..., n_inst, Kz)): the small-signal stamp, ``omega`` a tensor of
+  ``P[..., 0]``'s shape (nonlinear families read their saved operating
+  point from ``state``);
 * ``step_update(P, v, ib, state, dt, t)`` -> new_state (transient
   companion recurrence between accepted steps);
 * ``check_conv(P, v, state)`` -> (..., n_inst) bool convergence veto.
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 
 class DeviceClass(enum.Enum):
@@ -70,6 +74,7 @@ class ModelDef:
     pattern: Optional[Callable] = None
     rhs_pattern: Optional[Callable] = None
     stamp: Optional[Callable] = None
+    ac_stamp: Optional[Callable] = None
     step_update: Optional[Callable] = None
     check_conv: Optional[Callable] = None
     nonlinear: bool = False
@@ -85,6 +90,28 @@ class ModelDef:
     dout_pins: Tuple[int, ...] = ()
     # externally visible attribute names in reference order
     attrs: Tuple[str, ...] = ()
+    # alternate attribute spellings -> canonical param name
+    attr_aliases: Dict[str, str] = field(default_factory=dict)
+    # devices with variable pin counts
+    dynamic_params: bool = False
+    pin_names_fn: Optional[Callable] = None
+    nbranches_fn: Optional[Callable] = None
+
+    def num_pins(self, params) -> int:
+        return len(self.pin_names_for(params))
+
+    def pin_names_for(self, params) -> Sequence[str]:
+        if self.pin_names_fn is not None:
+            return self.pin_names_fn(params)
+        return self.pins
+
+    def num_branches(self, params) -> int:
+        if self.nbranches_fn is not None:
+            return self.nbranches_fn(params)
+        return self.nbranches
+
+    def attr_names(self, params) -> list:
+        return list(self.attrs) if self.attrs else list(self.defaults)
 
     def init_state_row(self, params) -> Dict[str, float]:
         out = {}

@@ -1,7 +1,10 @@
-"""PN junction (port of ``phy_engine_tpu/models/nonlinear.py:29-190``).
+"""Nonlinear analog devices: PN junction, BJT NPN/PNP, square-law
+MOSFETs and the full-bridge rectifier (port of
+``phy_engine_tpu/models/nonlinear.py``).
 
-Every piecewise branch of the reference (non-linear/PN_junction.h) is a
-branchless ``torch.where`` selection evaluated for the whole family.
+Every piecewise branch of the reference (non-linear/*.h) is a branchless
+``torch.where`` selection evaluated for the whole family, with the same
+SPICE junction limiting and convergence vetos as the JAX package.
 Guarded-log/exp discipline: ``where`` evaluates both sides, so every
 log/exp argument is clamped to a safe domain before the transcendental
 and the correct branch is selected afterwards — the unselected side is
@@ -15,6 +18,7 @@ import math
 import torch
 
 from .base import ModelDef, DeviceClass, register
+from .linear import row, zeros
 
 _K_KELVIN = -273.15
 _Q_E = 1.6021765314e-19        # same physical constants as the reference
@@ -136,6 +140,17 @@ def _pn_step(P, v, ib, state, dt, t):
     return out
 
 
+def _pn_ac(P, state, omega):
+    """AC: saved linearization geq (+ optional diffusion cap tt*geq), no
+    Ieq injection (PN_junction.h:406-438)."""
+    tt = P[..., 9]
+    geq = state["geq"]
+    use_cd = (tt > 0.0) & (geq > 0.0)
+    b = torch.where(use_cd, tt * geq * omega, torch.zeros_like(geq))
+    return (row(geq, geq, -geq, -geq, geq), row(b, b, -b, -b, b),
+            zeros(geq, 2), zeros(geq, 2))
+
+
 def _pn_check_conv(P, v, state):
     """Not converged while vlimit is still clamping: the raw junction
     voltage must agree with the limited one used for the stamps."""
@@ -157,5 +172,285 @@ PN_JUNCTION = register(ModelDef(
                 ("tr_hist", 0.0)),
     pattern=lambda p, b: ([p[0], p[0], p[1], p[1]], [p[0], p[1], p[0], p[1]]),
     rhs_pattern=lambda p, b: [p[0], p[1]],
-    stamp=_pn_stamp, step_update=_pn_step, nonlinear=True,
+    stamp=_pn_stamp, ac_stamp=_pn_ac, step_update=_pn_step, nonlinear=True,
+    attrs=("Is", "N", "Isr", "Nr", "Temp", "Ibv", "Bv", "Area", "tt",
+           "kf", "af"),
+))
+
+
+# ---------------------------------------------------------------------------
+# BJT  (non-linear/BJT_NPN.h:116-185, BJT_PNP.h mirrored): BE diode
+# linearization + current-gain VCCS.  Pins B, C, E.  The reference stamps
+# the raw exponential; here (as in the JAX package) the junction voltage
+# passes through the diode's SPICE pnjlim limiter.
+# ---------------------------------------------------------------------------
+
+def _bjt_ut(P):
+    return _K_B * (P[..., 3] - _K_KELVIN) / _Q_E     # P[3] = Temp
+
+
+def _bjt_uth(Is_eff, Ute):
+    """Critical voltage for junction limiting (same form as the diode's
+    Uth, PN_junction.h:330-346)."""
+    return Ute * _safe_log(Ute / (1.4142135623730951 * Is_eff))
+
+
+def _bjt_stamp(P, vj, vj_last):
+    """Shared NPN/PNP companion of the junction voltage ``vj`` (B-E for
+    NPN, E-B for PNP): (A values, z values, new state)."""
+    Is_eff = P[..., 0] * P[..., 4]
+    Ute = P[..., 1] * _bjt_ut(P)
+    beta = P[..., 2]
+    zero = torch.zeros_like(vj)
+    vj = pn_vlimit(vj, vj_last, Ute, _bjt_uth(Is_eff, Ute), zero, zero)
+    e = torch.exp(torch.clamp(vj / Ute, -200.0, 200.0))
+    geq = Is_eff * e / Ute
+    ij = Is_eff * (e - 1.0)
+    ieq_j = ij - vj * geq
+    gm = beta * geq
+    ieq_c = beta * ij - gm * vj
+    a = row(geq, geq, -geq, -geq, geq, gm, -gm, -gm, gm)
+    z = row(geq, -ieq_j, ieq_j, -ieq_c, ieq_c)
+    return a, z, {"geq": geq, "gm": gm, "vj_last": vj}
+
+
+def _bjt_npn_stamp(P, v, ib, state, ctx):
+    return _bjt_stamp(P, v[..., 0] - v[..., 2], state["vj_last"])
+
+
+def _bjt_pnp_stamp(P, v, ib, state, ctx):
+    return _bjt_stamp(P, v[..., 2] - v[..., 0], state["vj_last"])
+
+
+def _bjt_check_conv(sign):
+    """Not converged while pnjlim is still clamping (mirrors the diode's
+    check_conv)."""
+    def _check(P, v, state):
+        Ute = P[..., 1] * _bjt_ut(P)
+        vj_raw = (v[..., 0] - v[..., 2]) * sign
+        return torch.abs(vj_raw - state["vj_last"]) <= 2.0 * Ute + 1e-9
+    return _check
+
+
+def _bjt_ac(P, state, omega):
+    geq, gm = state["geq"], state["gm"]
+    a = row(geq, geq, -geq, -geq, geq, gm, -gm, -gm, gm)
+    return a, zeros(geq, 8), zeros(geq, 4), zeros(geq, 4)
+
+
+def _bjt_npn_pattern(pins, brs):
+    b, c, e = pins
+    return [b, b, e, e, c, c, e, e], [b, e, b, e, b, e, b, e]
+
+
+def _bjt_pnp_pattern(pins, brs):
+    b, c, e = pins
+    # EB diode quad + VCCS(E->C controlled by Veb) (BJT_PNP.h:126-156)
+    return [e, e, b, b, e, e, c, c], [e, b, e, b, e, b, e, b]
+
+
+_BJT_DEFAULTS = {"Is": 1e-16, "N": 1.0, "BetaF": 100.0, "Temp": 27.0,
+                 "Area": 1.0, "kf": 0.0, "af": 1.0}
+_BJT_ORDER = ("Is", "N", "BetaF", "Temp", "Area", "kf", "af")
+
+BJT_NPN = register(ModelDef(
+    name="NPN BJT", id_name="QNP", device_class=DeviceClass.NONLINEAR,
+    pins=("B", "C", "E"), defaults=dict(_BJT_DEFAULTS),
+    param_order=_BJT_ORDER,
+    state_vars=(("geq", 0.0), ("gm", 0.0), ("vj_last", 0.0)),
+    check_conv=_bjt_check_conv(1.0),
+    pattern=_bjt_npn_pattern,
+    rhs_pattern=lambda p, b: [p[0], p[2], p[1], p[2]],
+    stamp=_bjt_npn_stamp, ac_stamp=_bjt_ac, nonlinear=True,
+    attrs=_BJT_ORDER,
+))
+
+BJT_PNP = register(ModelDef(
+    name="PNP BJT", id_name="QPN", device_class=DeviceClass.NONLINEAR,
+    pins=("B", "C", "E"), defaults=dict(_BJT_DEFAULTS),
+    param_order=_BJT_ORDER,
+    state_vars=(("geq", 0.0), ("gm", 0.0), ("vj_last", 0.0)),
+    check_conv=_bjt_check_conv(-1.0),
+    pattern=_bjt_pnp_pattern,
+    rhs_pattern=lambda p, b: [p[2], p[0], p[2], p[1]],
+    stamp=_bjt_pnp_stamp, ac_stamp=_bjt_ac, nonlinear=True,
+    attrs=_BJT_ORDER,
+))
+
+
+# ---------------------------------------------------------------------------
+# MOSFET square-law  (non-linear/nmosfet.h:85-140, pmosfet.h mirrored).
+# Pins D, G, S.
+# ---------------------------------------------------------------------------
+
+def _mos_select(off, triode, tri, sat):
+    zero = torch.zeros_like(tri)
+    return torch.where(off, zero, torch.where(triode, tri, sat))
+
+
+def _nmos_stamp(P, v, ib, state, ctx):
+    kp, lam, vth = P[..., 0], P[..., 1], P[..., 2]
+    vgs = v[..., 1] - v[..., 2]
+    vds = v[..., 0] - v[..., 2]
+    vov = vgs - vth
+    off = vov <= 0.0
+    triode = vds < vov
+    b = vov * vds - 0.5 * vds * vds
+    i_d = _mos_select(off, triode, kp * b * (1.0 + lam * vds),
+                      0.5 * kp * vov * vov * (1.0 + lam * vds))
+    gm = _mos_select(off, triode, kp * vds * (1.0 + lam * vds),
+                     kp * vov * (1.0 + lam * vds))
+    gds = _mos_select(off, triode,
+                      kp * ((vov - vds) * (1.0 + lam * vds) + b * lam),
+                      0.5 * kp * vov * vov * lam)
+    ieq = i_d - gm * vgs - gds * vds
+    a = row(gm, gds, -gds, -gds, gds, gm, -gm, -gm, gm)
+    return a, row(ieq, -ieq, ieq), {"gm": gm, "gds": gds}
+
+
+def _pmos_stamp(P, v, ib, state, ctx):
+    kp, lam, vth = P[..., 0], P[..., 1], P[..., 2]
+    vsg = v[..., 2] - v[..., 1]
+    vds = v[..., 0] - v[..., 2]
+    vov = vsg - vth
+    off = vov <= 0.0
+    vsd = -vds
+    triode = vsd < vov
+    b = vov * vsd - 0.5 * vsd * vsd
+    i_d = _mos_select(off, triode, -(kp * b * (1.0 + lam * vsd)),
+                      -(0.5 * kp * vov * vov * (1.0 + lam * vsd)))
+    gm = _mos_select(off, triode, kp * vsd * (1.0 + lam * vsd),
+                     kp * vov * (1.0 + lam * vsd))
+    gds = _mos_select(off, triode,
+                      -(kp * ((vov - vsd) * (1.0 + lam * vsd) + b * lam)),
+                      0.5 * kp * vov * vov * (-lam))
+    ieq = i_d - gm * vsg - gds * vds
+    a = row(gm, gds, -gds, -gds, gds, gm, -gm, -gm, gm)
+    return a, row(ieq, -ieq, ieq), {"gm": gm, "gds": gds}
+
+
+def _mos_ac(P, state, omega):
+    gm, gds = state["gm"], state["gds"]
+    a = row(gm, gds, -gds, -gds, gds, gm, -gm, -gm, gm)
+    return a, zeros(gm, 8), zeros(gm, 2), zeros(gm, 2)
+
+
+def _nmos_pattern(pins, brs):
+    d, g, s = pins
+    # gds quad + gm entries
+    return [d, d, s, s, d, d, s, s], [d, s, d, s, g, s, g, s]
+
+
+def _pmos_pattern(pins, brs):
+    d, g, s = pins
+    # gds quad + gm controlled by (Vs - Vg)  (pmosfet.h:123-133)
+    return [d, d, s, s, d, d, s, s], [d, s, d, s, s, g, s, g]
+
+
+_MOS_DEFAULTS = {"Kp": 1e-3, "lambda": 0.0, "Vth": 1.0, "kf": 0.0, "af": 1.0}
+_MOS_ORDER = ("Kp", "lambda", "Vth", "kf", "af")
+
+NMOSFET = register(ModelDef(
+    name="NMOSFET", id_name="NMOS", device_class=DeviceClass.NONLINEAR,
+    pins=("D", "G", "S"), defaults=dict(_MOS_DEFAULTS),
+    param_order=_MOS_ORDER, state_vars=(("gm", 0.0), ("gds", 0.0)),
+    pattern=_nmos_pattern, rhs_pattern=lambda p, b: [p[0], p[2]],
+    stamp=_nmos_stamp, ac_stamp=_mos_ac, nonlinear=True, attrs=_MOS_ORDER,
+))
+
+PMOSFET = register(ModelDef(
+    name="PMOSFET", id_name="PMOS", device_class=DeviceClass.NONLINEAR,
+    pins=("D", "G", "S"), defaults=dict(_MOS_DEFAULTS),
+    param_order=_MOS_ORDER, state_vars=(("gm", 0.0), ("gds", 0.0)),
+    pattern=_pmos_pattern, rhs_pattern=lambda p, b: [p[0], p[2]],
+    stamp=_pmos_stamp, ac_stamp=_mos_ac, nonlinear=True, attrs=_MOS_ORDER,
+))
+
+
+# ---------------------------------------------------------------------------
+# Full-bridge rectifier  (non-linear/full_bridge_rectifier.h): four PN
+# junctions sharing one parameter set, D1 A->+, D2 B->+, D3 - -> A,
+# D4 - -> B (full_bridge_rectifier.h:20-47), lowered as one 4-pin device
+# whose kernels run the diode's over the four (anode, cathode) pin pairs.
+# ---------------------------------------------------------------------------
+
+_FBR_PAIRS = ((0, 2), (1, 2), (3, 0), (3, 1))
+_PN_STATE = ("ud_last", "geq", "tr_prev_g", "tr_hist")
+
+
+def _fbr_sub(state, k):
+    return {key: state[f"{key}{k}"] for key in _PN_STATE}
+
+
+def _fbr_merge(new_state, ns, k):
+    for key in _PN_STATE:
+        new_state[f"{key}{k}"] = ns[key]
+
+
+def _pair(v, a, c):
+    return torch.stack([v[..., a], v[..., c]], dim=-1)
+
+
+def _fbr_stamp(P, v, ib, state, ctx):
+    a_parts, z_parts = [], []
+    new_state = dict(state)
+    for k, (a, c) in enumerate(_FBR_PAIRS):
+        av, zv, ns = _pn_stamp(P, _pair(v, a, c), ib, _fbr_sub(state, k),
+                               ctx)
+        a_parts.append(av)
+        z_parts.append(zv)
+        _fbr_merge(new_state, ns, k)
+    return torch.cat(a_parts, dim=-1), torch.cat(z_parts, dim=-1), new_state
+
+
+def _fbr_step(P, v, ib, state, dt, t):
+    new_state = dict(state)
+    for k, (a, c) in enumerate(_FBR_PAIRS):
+        ns = _pn_step(P, _pair(v, a, c), ib, _fbr_sub(state, k), dt, t)
+        _fbr_merge(new_state, ns, k)
+    return new_state
+
+
+def _fbr_ac(P, state, omega):
+    parts = [_pn_ac(P, _fbr_sub(state, k), omega) for k in range(4)]
+    return tuple(torch.cat([p[i] for p in parts], dim=-1) for i in range(4))
+
+
+def _fbr_check_conv(P, v, state):
+    ok = None
+    for k, (a, c) in enumerate(_FBR_PAIRS):
+        f = _pn_check_conv(P, _pair(v, a, c), _fbr_sub(state, k))
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def _fbr_pattern(p, b):
+    rows, cols = [], []
+    for a, c in _FBR_PAIRS:
+        rows += [p[a], p[a], p[c], p[c]]
+        cols += [p[a], p[c], p[a], p[c]]
+    return rows, cols
+
+
+def _fbr_rhs(p, b):
+    out = []
+    for a, c in _FBR_PAIRS:
+        out += [p[a], p[c]]
+    return out
+
+
+FULL_BRIDGE_RECTIFIER = register(ModelDef(
+    name="Full Bridge Rectifier", id_name="FBR",
+    device_class=DeviceClass.NONLINEAR,
+    pins=("A", "B", "+", "-"),
+    defaults=dict(PN_JUNCTION.defaults),
+    param_order=PN_JUNCTION.param_order,
+    state_vars=tuple((f"{nm}{k}", init)
+                     for k in range(4)
+                     for nm, init in (("ud_last", 0.0), ("geq", 0.0),
+                                      ("tr_prev_g", 0.0),
+                                      ("tr_hist", 0.0))),
+    pattern=_fbr_pattern, rhs_pattern=_fbr_rhs,
+    stamp=_fbr_stamp, ac_stamp=_fbr_ac, step_update=_fbr_step,
+    check_conv=_fbr_check_conv, nonlinear=True,
 ))

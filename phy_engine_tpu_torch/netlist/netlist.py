@@ -1,6 +1,6 @@
-"""Host-side netlist data structures (the subset of
-``phy_engine_tpu/netlist/netlist.py`` that the analog lowering, Verilog
-synthesis and the digital engine read).
+"""Host-side netlist data structures (port of
+``phy_engine_tpu/netlist/netlist.py``; its snapshot, restore and deep
+copy come with the persistence layer, ROADMAP.md queue 1 item 15).
 
 Mirrors the reference's netlist (``include/phy_engine/netlist/
 netlist.h``): model instances with pins and branch unknowns, nets with
@@ -67,8 +67,8 @@ class Branch:
 class ModelInstance:
     """One placed device: a family (:class:`ModelDef`) plus parameters."""
 
-    __slots__ = ("mdef", "params", "pins", "branches", "name", "enabled",
-                 "_uid", "_pos")
+    __slots__ = ("mdef", "params", "pins", "branches", "name", "describe",
+                 "enabled", "runtime", "_uid", "_pos")
 
     _uid_counter = itertools.count()
 
@@ -78,15 +78,55 @@ class ModelInstance:
         self.params: Dict[str, Any] = dict(mdef.defaults)
         if params:
             unknown = set(params) - set(self.params)
-            if unknown:
+            if unknown and not mdef.dynamic_params:
                 raise KeyError(f"unknown parameter(s) {unknown} for model "
                                f"{mdef.name}")
             self.params.update(params)
-        self.pins = [Pin(name, self, i) for i, name in enumerate(mdef.pins)]
-        self.branches = [Branch() for _ in range(mdef.nbranches)]
+        names = mdef.pin_names_for(self.params)
+        self.pins = [Pin(name, self, i) for i, name in enumerate(names)]
+        self.branches = [Branch()
+                         for _ in range(mdef.num_branches(self.params))]
         self.name = name
+        self.describe = ""
         self.enabled = True
+        # per-instance device state read back after a solve
+        self.runtime: Dict[str, Any] = {}
         self._uid = next(ModelInstance._uid_counter)
+
+    # -- attribute API (reference: set/get_attribute by index or name,
+    #    model_refs/base.h + per-model *_define overloads).  An edit
+    #    changes ``params`` only: no structural version bump, and the
+    #    Circuit repacks parameters at every analysis. ---------------------
+    def attribute_names(self) -> List[str]:
+        return self.mdef.attr_names(self.params)
+
+    def _resolve_attr_key(self, key):
+        """index or name (display names like "Cut Through" match the
+        canonical param key case/space-insensitively)."""
+        if isinstance(key, int):
+            names = self.attribute_names()
+            if not (0 <= key < len(names)):
+                return None
+            key = names[key]
+        key = self.mdef.attr_aliases.get(key, key)
+        if key in self.params or self.mdef.dynamic_params:
+            return key
+        norm = key.lower().replace(" ", "_")
+        for k in self.params:
+            if k.lower().replace(" ", "_") == norm:
+                return k
+        return None
+
+    def set_attribute(self, key, value) -> bool:
+        key = self._resolve_attr_key(key)
+        if key is None:
+            return False
+        self.params[key] = value
+        return True
+
+    def get_attribute(self, key):
+        key = self._resolve_attr_key(key)
+        return None if key is None else self.params.get(key)
 
 
 class Netlist:
@@ -108,3 +148,9 @@ class Netlist:
         out = ([self.ground_node] if include_ground else [])
         out.extend(self.nodes)
         return out
+
+    def model_count(self) -> int:
+        return sum(1 for m in self.models if m is not None)
+
+    def node_count(self) -> int:
+        return len(self.nodes)

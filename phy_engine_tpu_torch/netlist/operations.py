@@ -1,10 +1,11 @@
-"""Netlist operations (port of ``phy_engine_tpu/netlist/operations.py``:
-``add_model``, ``delete_model``, ``create_node``, ``drop_node``,
-``add_to_node``, ``remove_from_node`` and ``merge_node`` — what netlist
-building and synthesis use; reference ``netlist/operation.h:49-259``)."""
+"""Netlist operations (port of ``phy_engine_tpu/netlist/operations.py``):
+``add_model`` / ``delete_model`` / ``get_model`` / ``create_node`` /
+``drop_node`` / ``add_to_node`` / ``remove_from_node`` / ``merge_node`` /
+``add_netlist`` (reference ``netlist/operation.h:49-338``)."""
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Union
 
 from .netlist import Netlist, Node, ModelInstance, Pin
@@ -39,6 +40,12 @@ def delete_model(nl: Netlist, inst: ModelInstance) -> bool:
     nl.models[pos] = None
     nl.touch()
     return True
+
+
+def get_model(nl: Netlist, pos: int) -> Optional[ModelInstance]:
+    if 0 <= pos < len(nl.models):
+        return nl.models[pos]
+    return None
 
 
 def create_node(nl: Netlist, name: str = "") -> Node:
@@ -119,3 +126,58 @@ def merge_node(nl: Netlist, keep: Node, absorb: Node) -> Node:
     drop_node(nl, absorb)
     nl.touch()
     return keep
+
+
+def _copy(src: Netlist) -> Netlist:
+    """Deep copy with node remap (reference: the netlist copy constructor,
+    netlist.h:351-536), as ``Netlist.copy`` of the JAX package builds it."""
+    new = Netlist()
+    node_map = {id(src.ground_node): new.ground_node}
+    for n in src.nodes:
+        nn = Node(name=n.name)
+        nn.voltage = n.voltage
+        nn.digital = n.digital
+        nn.num_of_analog_node = n.num_of_analog_node
+        node_map[id(n)] = nn
+        new.nodes.append(nn)
+    for m in src.models:
+        if m is None:
+            new.models.append(None)
+            continue
+        nm = ModelInstance(m.mdef, copy.deepcopy(m.params), m.name)
+        nm.describe = m.describe
+        nm.enabled = m.enabled
+        nm.runtime = copy.deepcopy(m.runtime)
+        for old_pin, new_pin in zip(m.pins, nm.pins):
+            if old_pin.node is not None:
+                tgt = node_map[id(old_pin.node)]
+                new_pin.node = tgt
+                tgt.pins.append(new_pin)
+        new.models.append(nm)
+    new.version = src.version
+    return new
+
+
+def add_netlist(dst: Netlist, src: Netlist) -> dict:
+    """Graft a copy of ``src`` into ``dst`` (operation.h:261-338).
+
+    Returns a mapping {id(src node/model): new object} so callers can
+    stitch ports.  The source ground merges into the destination ground.
+    """
+    src_copy = _copy(src)
+    remap = {id(src.ground_node): dst.ground_node}
+    for orig, copied in zip(src.nodes, src_copy.nodes):
+        dst.nodes.append(copied)
+        remap[id(orig)] = copied
+    for orig, copied in zip(src.models, src_copy.models):
+        if copied is None:
+            continue
+        dst.models.append(copied)
+        remap[id(orig)] = copied
+    # reconnect copied ground pins to dst ground
+    for p in list(src_copy.ground_node.pins):
+        p.node = dst.ground_node
+        dst.ground_node.pins.append(p)
+        dst.ground_node.num_of_analog_node += 1
+    dst.touch()
+    return remap

@@ -1,12 +1,20 @@
-"""Dense f64 solver for MNA systems (port of ``phy_engine_tpu/ops/
-linsolve.py:28-65``): the f64 Gauss tier of the 'hybrid' Newton solver.
+"""Dense solvers for MNA systems (port of ``phy_engine_tpu/ops/
+linsolve.py``).
 
-``lu_solve_gauss`` is partial-pivoted Gaussian elimination written as n
-rank-1 steps over a leading batch dimension: pivot on the largest
-|A[i, k]| among i >= k (first index on a tie, as ``argmax``), swap rows
-by a gather, eliminate every other row.  MNA voltage-source rows have
-structural-zero diagonals, so pivoting is mandatory; a singular system
-yields NaN/Inf, which the Newton driver's isfinite guard detects.
+* ``lu_solve_gauss`` — partial-pivoted Gauss-Jordan elimination as n
+  rank-1 steps over a leading batch dimension: pivot on the largest
+  |A[i, k]| among i >= k (first index on a tie, as ``argmax``), swap rows
+  k and p, eliminate every other row.  MNA voltage-source rows have
+  structural-zero diagonals, so pivoting is mandatory; a singular system
+  yields NaN/Inf, which the Newton driver's isfinite guard detects.  It
+  is the f64 tier of the 'hybrid' Newton solver and the dense solve of
+  the ``Circuit`` driver.
+* ``dense_solve`` — the dtype dispatch: ``torch.linalg.solve`` for
+  float32 / complex64 (as the JAX package sends them to
+  ``jnp.linalg.solve``), ``lu_solve_gauss`` otherwise.
+
+Both take a system ``(n, n)`` + ``(n,)`` or a batch ``(B, n, n)`` +
+``(B, n)``.
 """
 
 from __future__ import annotations
@@ -15,8 +23,10 @@ import torch
 
 
 def lu_solve_gauss(A, b):
-    """Solve A x = b for A (B, n, n), b (B, n) by partial-pivoted
-    Gauss-Jordan elimination in A's dtype."""
+    """Solve A x = b by partial-pivoted Gauss-Jordan elimination in A's
+    dtype; A (B, n, n) and b (B, n), or one unbatched system."""
+    if A.dim() == 2:
+        return lu_solve_gauss(A[None], b[None])[0]
     B, n, _ = A.shape
     A = A.clone()
     b = b.clone()
@@ -25,14 +35,22 @@ def lu_solve_gauss(A, b):
     for k in range(n):
         col = torch.where(ar < k, -torch.inf, A[:, :, k].abs())
         p = torch.argmax(col, dim=1)                            # (B,)
-        idx = ar.expand(B, n).clone()
-        idx[:, k] = p
-        idx[lanes, p] = k
-        A = torch.gather(A, 1, idx[:, :, None].expand(B, n, n))
-        b = torch.gather(b, 1, idx)
-        pivot = A[:, k, k]
-        factors = A[:, :, k] / pivot[:, None]
+        # swap rows k <-> p (p >= k): the same permutation as the JAX
+        # package's whole-matrix gather, moving two rows a lane
+        row_p, b_p = A[lanes, p], b[lanes, p]
+        A[lanes, p] = A[:, k].clone()
+        A[:, k] = row_p
+        b[lanes, p] = b[:, k].clone()
+        b[:, k] = b_p
+        factors = A[:, :, k] / A[:, k, k, None]
         factors[:, k] = 0.0
-        A = A - factors[:, :, None] * A[:, k, None, :]
-        b = b - factors * b[:, k, None]
+        A -= factors[:, :, None] * A[:, k, None, :]
+        b -= factors * b[:, k, None]
     return b / torch.diagonal(A, dim1=1, dim2=2)
+
+
+def dense_solve(A, b):
+    """Dtype-dispatching dense solve (see the module docstring)."""
+    if A.dtype in (torch.float32, torch.complex64):
+        return torch.linalg.solve(A, b)
+    return lu_solve_gauss(A, b)

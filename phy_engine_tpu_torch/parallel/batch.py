@@ -1,13 +1,16 @@
-"""Monte-Carlo batches of one topology (port of
-``phy_engine_tpu/parallel/batch.py:23-55``).
+"""Batched analysis of one topology (port of
+``phy_engine_tpu/parallel/batch.py``): Monte-Carlo, corners and sweeps.
 
 ``batch_params`` / ``batch_state`` / ``batch_x`` tile the IR's arrays
 into a leading batch dimension; the lognormal parameter jitter is drawn
-from an explicit ``torch.Generator``.  ``params_from_numpy`` /
-``state_from_numpy`` carry arrays drawn elsewhere (e.g. by the JAX
-package's ``batch_params``, whose PRNG the port does not re-implement)
-into the port's float64 tensors, so both packages run on identical
-inputs.
+from an explicit ``torch.Generator``.  ``batched_op`` /
+``batched_transient`` run the per-lane dense Newton of
+:mod:`..engine.analog` over the batch — the JAX package's ``vmap`` of
+``newton_solve`` / ``transient``, with the batch dimension written
+out.  ``params_from_numpy`` / ``state_from_numpy`` carry arrays drawn
+elsewhere (e.g. by the JAX package's ``batch_params``, whose PRNG the
+port does not re-implement) into the port's float64 tensors, so both
+packages run on identical inputs.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from .. import F64
 from ..engine import analog
 from ..engine.lower import AnalogIR
+from ..models.base import StampCtx
 
 
 def batch_params(ir: AnalogIR, n: int, jitter: Optional[Dict] = None,
@@ -31,11 +35,21 @@ def batch_params(ir: AnalogIR, n: int, jitter: Optional[Dict] = None,
     column is multiplied by exp(sigma * N(0, 1)) drawn per lane and
     instance from ``generator`` (on the CPU, then moved to ``device``).
     """
-    base = analog.initial_params(ir, "cpu")
+    return jitter_params(ir, analog.initial_params(ir, "cpu"), n, jitter,
+                         generator, device)
+
+
+def jitter_params(ir: AnalogIR, base: Dict[str, torch.Tensor], n: int,
+                  jitter: Optional[Dict] = None,
+                  generator: Optional[torch.Generator] = None,
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    """Tile one circuit's parameter matrices ``base`` ({family: (n_inst,
+    n_params)}) into n lanes, with ``batch_params``' jitter (drawn and
+    applied on the CPU, in family order, then moved to ``device``)."""
     out = {}
     for fam in ir.families:
         k = fam.mdef.id_name
-        P = base[k].expand((n,) + base[k].shape).clone()
+        P = base[k].cpu().expand((n,) + base[k].shape).clone()
         if jitter and k in jitter:
             for pname, sigma in jitter[k].items():
                 col = fam.mdef.param_order.index(pname)
@@ -46,14 +60,33 @@ def batch_params(ir: AnalogIR, n: int, jitter: Optional[Dict] = None,
     return out
 
 
-def batch_state(ir: AnalogIR, n: int, device="cuda"):
-    st = analog.initial_state(ir, device)
+def batch_state(ir: AnalogIR, n: int, device="cuda", dtype=F64):
+    st = analog.initial_state(ir, device, dtype)
     return {k: {v: a.expand((n,) + a.shape).clone() for v, a in d.items()}
             for k, d in st.items()}
 
 
-def batch_x(ir: AnalogIR, n: int, device="cuda") -> torch.Tensor:
-    return torch.zeros((n, ir.n_unknowns), dtype=F64, device=device)
+def batch_x(ir: AnalogIR, n: int, device="cuda", dtype=F64) -> torch.Tensor:
+    return torch.zeros((n, ir.n_unknowns), dtype=dtype, device=device)
+
+
+def batched_op(ir: AnalogIR, params_b, x_b, states_b, env, mode: str = "op",
+               t: float = 0.0):
+    """Batched operating-point solve: (B, ...) in, (x (B, n), states,
+    ok (B,)) out, each lane with its own Newton loop."""
+    ctx = StampCtx(mode=mode, t=float(t), dt=0.0, env=env)
+    return analog.newton_solve(ir, params_b, x_b, states_b, ctx)
+
+
+def batched_transient(ir: AnalogIR, params_b, x_b, states_b, env, t0, dt,
+                      num_steps: int, keep_trace: bool = False):
+    """Batched fixed-step transient: every circuit of the batch advances
+    ``num_steps`` with its own masked Newton loop.  Returns (x, states,
+    ok, xs): xs is (B, num_steps, n) when ``keep_trace``, else the final
+    x."""
+    x, st, ok, xs = analog.transient(ir, params_b, x_b, states_b, env, t0,
+                                     dt, num_steps)
+    return x, st, ok, (xs if keep_trace else xs[:, -1])
 
 
 def params_from_numpy(ir: AnalogIR, arrays: Dict[str, np.ndarray],

@@ -6,6 +6,8 @@ main path) and the synthesized RV32 core (digital main path).
 by the tests): a VAC source drives an R chain plus ``n_links`` random
 long-range R links, with a diode and a capacitor to ground at every
 node.  255 stages give 256 MNA unknowns (255 nodes + 1 source branch).
+``diode_ladder_netlist`` is the same circuit as a netlist, which the
+``Circuit`` driver runs.
 
 ``frozen_transient`` is the main path at a chosen size: a Monte-Carlo
 batch with 5 % lognormal jitter on every R, advanced through fixed
@@ -62,6 +64,13 @@ def ladder_links(n_stages: int, n_links: int):
 def build_diode_ladder(n_stages: int = N_STAGES, r: float = R_CHAIN,
                        c: float = C_NODE, n_links: int = 255):
     """Lowered IR of the diode ladder (see the module docstring)."""
+    return lower_analog(diode_ladder_netlist(n_stages, r, c, n_links))
+
+
+def diode_ladder_netlist(n_stages: int = N_STAGES, r: float = R_CHAIN,
+                         c: float = C_NODE, n_links: int = 255) -> Netlist:
+    """The diode ladder's netlist, for ``Circuit(netlist=...)``; its nets
+    in ladder order are ``Netlist.nodes``."""
     nl = Netlist()
     v = netops.add_model(nl, VAC, {"Vp": 2.0, "freq": 1e6})
     nodes = [netops.create_node(nl) for _ in range(n_stages)]
@@ -82,7 +91,7 @@ def build_diode_ladder(n_stages: int = N_STAGES, r: float = R_CHAIN,
         cl = netops.add_model(nl, CAPACITOR, {"C": c})
         netops.add_to_node(nl, cl, 0, nodes[i])
         netops.add_to_node(nl, cl, 1, nl.ground_node)
-    return lower_analog(nl)
+    return nl
 
 
 def default_env():
@@ -189,7 +198,7 @@ def rv32_run(batch: int = 1, cycles: int = 200, device="cuda",
     tick, lane 0."""
     d = design if design is not None else build_rv32(device)
     c = d.circuit
-    c.prepare().reset_state()
+    c.digital_engine().reset_state()
     reset, body = rv32_schedules(d, cycles)
     c.digital_run(reset)
     if batch == 1:

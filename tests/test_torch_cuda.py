@@ -1,7 +1,8 @@
 """CUDA tests of the PyTorch port: the hand-written kernels against their
 plain torch versions, the small frozen transient (both refactors) on the
-card against the CPU path, and RV32 through Circuit.digital_run on the
-card.  Marked ``cuda``; each skips on a host without a CUDA
+card against the CPU path, RV32 through Circuit.digital_run on the
+card, and the analog Circuit driver's analyses on the card against the
+CPU.  Marked ``cuda``; each skips on a host without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs
 on a machine that has only torch:
 
@@ -11,7 +12,9 @@ Tolerances: kernels ``gj_cases.TOL`` (1e-4) relative to max|x| of the
 lane (the blocked kernels sum in another order than their plain
 versions; a repeat run of a kernel is bit-identical); the transient 1e-6
 relative to max|trace|; the turbo kernel none (bit-identical: exact
-integer logic).
+integer logic); the Circuit driver's analyses 1e-6 relative to
+max|x| of the CPU result (the same f64 algorithm; the card's sin/exp may
+differ in the last ulps), repeat runs bit-identical.
 """
 
 import numpy as np
@@ -24,6 +27,12 @@ from phy_engine_tpu_torch.engine import analog
 from phy_engine_tpu_torch.ops import gj, lu_block
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
 from phy_engine_tpu_torch.parallel.batch import batch_params, batch_state, batch_x
+
+import phy_engine_tpu_torch as tpe
+from phy_engine_tpu_torch.engine import circuit as tcircuit
+
+from torch_circuits import (build, build_port, diode_load, divider,
+                            unported_routes_raise)
 
 
 @pytest.fixture
@@ -344,7 +353,7 @@ def rv32():
 
 def _rv32_watch(d):
     """The signals chip_smoke.py's batched phase watches: result, done."""
-    eng = d.circuit.prepare()
+    eng = d.circuit.digital_engine()
     return [eng.ir.node_sig[id(n)]
             for n in d.ports["result"] + d.ports["done"]]
 
@@ -395,3 +404,117 @@ def test_rv32_digital_run_on_the_card(cuda):
     assert int(res[0]) == d.expect == 4264 and int(done[0]) == 1
     res, done = workloads.rv32_run(4, 200, design=d)
     assert (res == 4264).all() and (done == 1).all()
+
+
+# ---------------------------------------------------------------------------
+# the analog Circuit driver on the card
+# ---------------------------------------------------------------------------
+
+def _rectifier():
+    return [("v", "VAC", {"Vp": 5.0, "freq": 1e3}, ("in", "0")),
+            ("d", "PN_JUNCTION", {}, ("in", "out")),
+            ("r", "RESISTANCE", {"r": 1e3}, ("out", "0")),
+            ("cap", "CAPACITOR", {"C": 1e-6}, ("out", "0"))]
+
+
+def _rlc():
+    return [("v", "VAC", {"Vp": 1.0}, ("n1", "0")),
+            ("r", "RESISTANCE", {"r": 10.0}, ("n1", "n2")),
+            ("l", "INDUCTOR", {"L": 1e-3}, ("n2", "n3")),
+            ("cap", "CAPACITOR", {"C": 1e-6}, ("n3", "0"))]
+
+
+def _setup(t_step=None, t_stop=None, adaptive=False, ac=None):
+    def setup(b):
+        if t_step is not None:
+            b.c.tr.t_step, b.c.tr.t_stop = t_step, t_stop
+            b.c.tr.adaptive = adaptive
+        if ac is not None:
+            b.c.ac.sweep = b.mod.ACSweepType.LOG
+            b.c.ac.omega_start, b.c.ac.omega_stop, b.c.ac.points = ac
+    return setup
+
+
+CIRCUIT_CASES = {
+    "divider_dc": (divider(), "DC", _setup()),
+    "diode_op": (diode_load(5.0), "OP", _setup()),
+    "rectifier_tr": (_rectifier(), "TR", _setup(5e-6, 2e-3)),
+    "rectifier_adaptive_tr": (_rectifier(), "TR", _setup(5e-5, 1e-3, True)),
+    "rlc_ac": (_rlc(), "AC", _setup(ac=(1e2, 1e6, 25))),
+    "diode_acop": (diode_load(5.0, tt=1e-9), "ACOP",
+                   _setup(ac=(1e3, 1e10, 15))),
+}
+
+
+def _circuit_run(name, device):
+    spec, at, setup = CIRCUIT_CASES[name]
+    b = build_port(spec, device)
+    setup(b)
+    b.c.set_analyze_type(getattr(b.mod.AnalyzeType, at))
+    ok = b.c.analyze()
+    out = [b.c._x.cpu().numpy()]
+    if b.c.tr_history is not None:
+        out += [b.c.tr_history, b.c.tr_times]
+    if b.c.ac_sweep_results:
+        out.append(np.stack([x for _w, x in b.c.ac_sweep_results]))
+    return ok, out
+
+
+def _circuit_close(card, host, tol=1e-6):
+    for a, b in zip(card, host):
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CIRCUIT_CASES))
+def test_circuit_card_matches_cpu(cuda, name):
+    ok_c, host = _circuit_run(name, "cpu")
+    ok_g, card = _circuit_run(name, cuda)
+    assert ok_c and ok_g
+    _circuit_close(card, host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["diode_op", "rectifier_tr", "diode_acop"])
+def test_circuit_card_repeat_runs_are_bit_identical(cuda, name):
+    _ok, first = _circuit_run(name, cuda)
+    _ok, second = _circuit_run(name, cuda)
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
+
+
+def _sweeps(device):
+    b = build_port(diode_load(0.0), device)
+    dc = b.c.dc_sweep(b.devs["v"], "V", np.linspace(-2.0, 5.0, 9))
+    temp = b.c.temp_sweep(np.linspace(-40.0, 125.0, 7))
+    mc = b.c.monte_carlo({"R": {"r": 0.1}}, 6,
+                         generator=torch.Generator().manual_seed(1))
+    tr = b.c.monte_carlo({"R": {"r": 0.1}}, 3, analysis="tr",
+                         generator=torch.Generator().manual_seed(2),
+                         t_stop=2e-6, t_step=5e-8)
+    for r in (dc, temp, mc, tr):
+        assert r.ok.all()
+    return [dc.x, temp.x, mc.x, mc.params["R"], tr.history]
+
+
+@pytest.mark.cuda
+def test_circuit_sweeps_card_matches_cpu(cuda):
+    """dc_sweep, temp_sweep and monte_carlo (op and tr; the draws come from
+    the same CPU generator) on the card against the CPU."""
+    _circuit_close(_sweeps(cuda), _sweeps("cpu"))
+
+
+@pytest.mark.cuda
+def test_circuit_defaults_to_the_card(cuda):
+    b = build(tpe, tcircuit, divider())            # no device argument
+    assert b.c.device.type == "cuda"
+    b.c.set_analyze_type(b.mod.AnalyzeType.DC)
+    assert b.c.analyze()
+    assert b.c._x.is_cuda
+    assert np.isclose(b.c.node_voltage(b.nodes["mid"]).real, 3.0)
+
+
+@pytest.mark.cuda
+def test_circuit_unported_routes_raise_on_the_card(cuda):
+    assert unported_routes_raise(cuda) == 10

@@ -74,7 +74,7 @@ def _both(name):
     (jc, ji, _jp, _jr), (tc, ti, _tp, _tr) = built(name)
     jc.prepare()
     _e, fs, FV, FU = jc._compile_schedule(SCHEDULES[name](ji))
-    teng = tc.prepare()
+    teng = tc.digital_engine()
     _e, tfs, TFV, TFU = tc._compile_schedule(SCHEDULES[name](ti))
     np.testing.assert_array_equal(tfs, fs)
     np.testing.assert_array_equal(TFV, FV)
@@ -102,7 +102,7 @@ def _port_run(teng, fs, FV, FU, jstate0):
 def test_ir_matches_jax(name):
     (jc, _ji, _jp, _jr), (tc, _ti, _tp, _tr) = built(name)
     jc.prepare()
-    j, t = jc._digital.ir, tc.prepare().ir
+    j, t = jc._digital.ir, tc.digital_engine().ir
     jplace = {id(n): i for i, n in enumerate(jc.nl.all_nodes())}
     tplace = {id(n): i for i, n in enumerate(tc.nl.all_nodes())}
     assert t.n_signals == j.n_signals
@@ -248,7 +248,7 @@ def test_load_state_continues_jax_run():
     the run matches the JAX engine's, and the state round-trips."""
     jp, first, (sv, su, seq, head_mid), second, _head = levels_halves()
     tc, ts, tp = _port_snake()
-    teng = tc.prepare()
+    teng = tc.digital_engine()
     teng.load_state(sv, su, seq)
     np.testing.assert_array_equal(teng.sv, sv)
     np.testing.assert_array_equal(teng.su, su)
@@ -289,7 +289,7 @@ def test_ineligible_design_raises():
         c.prepare()
     r = netops.add_model(nl, RESISTANCE, {"r": 1.0})
     netops.add_to_node(nl, r, 0, q)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         c.prepare()
 
 

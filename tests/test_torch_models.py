@@ -1,6 +1,8 @@
-"""Port parity: the batched torch stamps, step updates and convergence
-vetos of R, C, VAC and the PN junction against the JAX package's
-per-instance kernels (vmapped over lanes and instances).
+"""Port parity: the batched torch stamps, AC stamps, step updates and
+convergence vetos of every analog family but BSIM3 (linear, waveform
+sources, switch and relay, PN, BJT, MOSFET, full-bridge rectifier)
+against the JAX package's per-instance kernels (vmapped over lanes and
+instances), and their metadata.
 
 Tolerance: 1e-12 relative per element (float64; the two libraries'
 exp/log/sin may differ in the last ulps), against the larger magnitude
@@ -24,7 +26,10 @@ from phy_engine_tpu_torch.models import MODEL_REGISTRY, StampCtx
 torch.set_num_threads(1)
 
 B, NI = 3, 40
-ENV = {"g_min": 0.0}
+ENV = {"g_min": 0.0, "r_open": 1e12}
+ANALOG = sorted(k for k, m in MODEL_REGISTRY.items() if m.stamp is not None)
+STEPPED = [k for k in ANALOG if MODEL_REGISTRY[k].step_update is not None]
+VETOED = [k for k in ANALOG if MODEL_REGISTRY[k].check_conv is not None]
 
 
 def _close(a, b, rtol=1e-12):
@@ -60,6 +65,51 @@ def _params(key, rng):
         P[..., 6] = rng.uniform(20, 60, (B, NI))             # Bv
         P[..., 7] = np.where(rng.random((B, NI)) < 0.8, 1.0, 0.0)  # Bv_set
         P[..., 9] = np.where(rng.random((B, NI)) < 0.5, 0.0, 1e-9)  # tt
+    elif key == "FBR":
+        P[..., 0] = 10 ** rng.uniform(-16, -12, (B, NI))
+        P[..., 4] = rng.uniform(-20, 100, (B, NI))
+        P[..., 9] = np.where(rng.random((B, NI)) < 0.5, 0.0, 1e-9)
+    elif key in ("QNP", "QPN"):
+        P[..., 0] = 10 ** rng.uniform(-17, -14, (B, NI))     # Is
+        P[..., 1] = rng.uniform(1.0, 2.0, (B, NI))           # N
+        P[..., 2] = rng.uniform(20.0, 300.0, (B, NI))        # BetaF
+        P[..., 3] = rng.uniform(-20, 100, (B, NI))           # Temp
+        P[..., 4] = rng.uniform(0.5, 2.0, (B, NI))           # Area
+    elif key in ("NMOS", "PMOS"):
+        P[..., 0] = 10 ** rng.uniform(-5, -2, (B, NI))       # Kp
+        P[..., 1] = rng.uniform(0.0, 0.1, (B, NI))           # lambda
+        P[..., 2] = rng.uniform(0.3, 2.0, (B, NI))           # Vth
+    elif key in ("SAW", "SQW", "PULSE", "TRI"):
+        names = MODEL_REGISTRY[key].param_order
+        col = {n: i for i, n in enumerate(names)}
+        P[..., col["Vh"]] = rng.uniform(1.0, 5.0, (B, NI))
+        P[..., col["Vl"]] = rng.uniform(-2.0, 0.5, (B, NI))
+        P[..., col["freq"]] = 10 ** rng.uniform(2, 5, (B, NI))
+        P[..., col["phase"]] = rng.uniform(-3.0, 3.0, (B, NI))
+        if "duty" in col:
+            P[..., col["duty"]] = rng.uniform(0.1, 0.9, (B, NI))
+        if "tr" in col:
+            period = 1.0 / P[..., col["freq"]]
+            for e in ("tr", "tf"):
+                P[..., col[e]] = np.where(rng.random((B, NI)) < 0.2, 0.0,
+                                          rng.uniform(0, 0.2, (B, NI))
+                                          * period)
+    elif key == "switch":
+        P[..., 0] = (rng.random((B, NI)) < 0.5).astype(np.float64)
+    elif key == "RELAY":
+        P[..., 0] = rng.uniform(3.0, 6.0, (B, NI))
+        P[..., 1] = rng.uniform(1.0, 3.0, (B, NI))
+    elif key == "KL":
+        P[..., :2] = 10 ** rng.uniform(-6, -2, (B, NI, 2))
+        P[..., 2] = rng.uniform(0.1, 0.999, (B, NI))
+    elif key in ("VDC", "IDC", "VCVS", "VCCS", "CCVS", "CCCS", "OPAMP"):
+        P[..., 0] *= rng.uniform(-2.0, 2.0, (B, NI))
+    elif key == "IAC":
+        P[..., 0] = rng.uniform(-1.0, 1.0, (B, NI))
+        P[..., 1] = 10 ** rng.uniform(2, 6, (B, NI))
+        P[..., 2] = rng.uniform(-90, 90, (B, NI))
+    else:                       # L, TX, TXCT: positive scale jitter
+        P *= np.exp(0.5 * rng.standard_normal(P.shape))
     return P
 
 
@@ -75,16 +125,33 @@ def _voltages(key, rng):
                                rng.uniform(-90.0, -40.0, (B, NI))))
         v[..., 1] = rng.uniform(-0.5, 0.5, (B, NI))
         v[..., 0] = v[..., 1] + ud
+    elif key in ("QNP", "QPN"):
+        # junction voltage (B-E, or E-B for PNP) forward, near the knee,
+        # and reverse
+        band = np.arange(NI) % 3
+        vj = np.where(band == 0, rng.uniform(0.5, 3.0, (B, NI)),
+                      np.where(band == 1, rng.uniform(0.2, 0.8, (B, NI)),
+                               rng.uniform(-5.0, 0.0, (B, NI))))
+        v[..., 2] = rng.uniform(-0.5, 0.5, (B, NI))
+        v[..., 0] = v[..., 2] + (vj if key == "QNP" else -vj)
+    elif key in ("NMOS", "PMOS", "RELAY", "FBR"):
+        v = rng.uniform(-6.0, 6.0, (B, NI, npins))
     return v
 
 
 def _state(key, rng):
     st = {}
     for name, _init in MODEL_REGISTRY[key].state_vars:
-        if name == "ud_last":
+        base = name.rstrip("0123456789") if key == "FBR" else name
+        if base in ("ud_last", "vj_last"):
             st[name] = rng.uniform(-1.0, 0.8, (B, NI))
-        elif name in ("prev_g", "geq", "tr_prev_g"):
+        elif base in ("prev_g", "geq", "tr_prev_g", "gm", "gds", "req",
+                      "req11", "req12", "req22"):
             st[name] = 10 ** rng.uniform(-6, 1, (B, NI))
+        elif base == "engaged":
+            st[name] = (rng.random((B, NI)) < 0.5).astype(np.float64)
+        elif base == "r_contact":
+            st[name] = np.where(rng.random((B, NI)) < 0.5, 0.0, 1e12)
         else:
             st[name] = rng.standard_normal((B, NI)) * 1e-3
     return st
@@ -93,7 +160,8 @@ def _state(key, rng):
 def _inputs(key, seed):
     rng = np.random.default_rng(seed)
     return (_params(key, rng), _voltages(key, rng),
-            rng.standard_normal((B, NI, 1)) * 1e-3, _state(key, rng))
+            rng.standard_normal((B, NI, max(1, MODEL_REGISTRY[key].nbranches)))
+            * 1e-3, _state(key, rng))
 
 
 def _vmap2(fn):
@@ -113,10 +181,9 @@ def _jstate(st):
 
 
 @pytest.mark.parametrize("mode", ["tr", "op"])
-@pytest.mark.parametrize("key", ["R", "C", "VAC", "PN"])
+@pytest.mark.parametrize("key", ANALOG)
 def test_stamp_matches_jax(key, mode):
-    P, v, ib, st = _inputs(key, seed=["R", "C", "VAC", "PN"].index(key)
-                           + 10 * (mode == "tr"))
+    P, v, ib, st = _inputs(key, seed=ANALOG.index(key) + 100 * (mode == "tr"))
     t, dt = 3.7e-7, 5e-8
     jm, tm = JAX_REGISTRY[key], MODEL_REGISTRY[key]
     jctx = JStampCtx(mode=mode, t=jnp.asarray(t), dt=jnp.asarray(dt), env=ENV)
@@ -132,7 +199,7 @@ def test_stamp_matches_jax(key, mode):
 
 
 @pytest.mark.parametrize("dt", [5e-8, 0.0])
-@pytest.mark.parametrize("key", ["C", "PN"])
+@pytest.mark.parametrize("key", STEPPED)
 def test_step_update_matches_jax(key, dt):
     P, v, ib, st = _inputs(key, seed=7 + int(dt > 0))
     t = 1e-6
@@ -161,3 +228,49 @@ def test_pn_check_conv_bit_exact(seed):
     jf = np.asarray(jflags)
     assert np.array_equal(tflags.numpy(), jf)
     assert jf.any() and not jf.all()
+
+
+@pytest.mark.parametrize("key", ANALOG)
+def test_ac_stamp_matches_jax(key):
+    """The small-signal stamp at a per-lane omega, from the saved
+    operating-point states."""
+    P, _v, _ib, st = _inputs(key, seed=300 + ANALOG.index(key))
+    w = 10 ** np.random.default_rng(ANALOG.index(key)).uniform(0, 9, B)
+    ac = JAX_REGISTRY[key].ac_stamp
+    jout = jax.vmap(lambda P_, s_, w_: jax.vmap(
+        lambda p, s: ac(p, s, w_))(P_, s_))(jnp.asarray(P), _jstate(st),
+                                           jnp.asarray(w))
+    tout = MODEL_REGISTRY[key].ac_stamp(
+        _t(P), _tstate(st), _t(np.repeat(w[:, None], NI, axis=1)))
+    assert len(tout) == 4
+    for a, b in zip(tout, jout):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("key", VETOED)
+def test_check_conv_matches_jax(key):
+    """Every family's convergence veto, a third of the lanes at the edge
+    of its threshold."""
+    P, v, _ib, st = _inputs(key, seed=400 + VETOED.index(key))
+    rng = np.random.default_rng(VETOED.index(key))
+    near = rng.random((B, NI)) < 0.33
+    if key in ("QNP", "QPN"):
+        sign = 1.0 if key == "QNP" else -1.0
+        raw = (v[..., 0] - v[..., 2]) * sign
+        st["vj_last"] = np.where(near, raw + rng.uniform(-0.1, 0.1, (B, NI)),
+                                 st["vj_last"])
+    elif key == "FBR":
+        raw = v[..., 0] - v[..., 2]
+        st["ud_last0"] = np.where(near, raw + rng.uniform(-0.1, 0.1, (B, NI)),
+                                  st["ud_last0"])
+    jflags = _vmap2(JAX_REGISTRY[key].check_conv)(
+        jnp.asarray(P), jnp.asarray(v), _jstate(st))
+    tflags = MODEL_REGISTRY[key].check_conv(_t(P), _t(v), _tstate(st))
+    assert np.array_equal(tflags.numpy(), np.asarray(jflags))
+
+
+def test_every_non_bsim3_analog_family_is_ported():
+    jax_analog = {k for k, m in JAX_REGISTRY.items()
+                  if m.stamp is not None and not k.startswith("BSIM3")}
+    assert set(ANALOG) == jax_analog
+    assert all(MODEL_REGISTRY[k].ac_stamp is not None for k in ANALOG)

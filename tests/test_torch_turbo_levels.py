@@ -26,7 +26,7 @@ C = turbo.CHUNK
 
 def _port_plan(name):
     _jc, (tc, ti, _tp, _tr) = built(name)
-    eng = tc.prepare()
+    eng = tc.digital_engine()
     _e, fs, _FV, _FU = tc._compile_schedule(SCHEDULES[name](ti))
     return eng.plan(fs)
 

@@ -1,0 +1,85 @@
+"""Circuit descriptions for the port's tests, free of JAX (the card tests
+import them on a machine that has only torch).
+
+A description is a list of devices ``(name, MODEL, params, pins)``:
+``MODEL`` names a family constant of ``<package>.models`` (``"VDC"``,
+``"RESISTANCE"``, ...) and ``pins`` the nets its pins connect to, in pin
+order; net ``"0"`` is ground and every other net is created at its first
+use.
+"""
+
+from types import SimpleNamespace
+
+import pytest
+
+import phy_engine_tpu_torch as tpe
+from phy_engine_tpu_torch.engine import circuit as tcircuit
+
+
+def build(pe, mod, spec, env=None, **kw):
+    """The circuit of ``spec`` in package ``pe`` (circuit module ``mod``):
+    a namespace with ``c`` the Circuit, ``nodes`` / ``devs`` by name and
+    ``mod``."""
+    c = pe.Circuit(env=pe.Environment(**env) if env else None, **kw)
+    nl = c.nl
+    nodes = {"0": nl.ground_node}
+    devs = {}
+    for name, fam, params, pins in spec:
+        m = pe.netops.add_model(nl, getattr(pe.models, fam), dict(params))
+        for k, net in enumerate(pins):
+            if net not in nodes:
+                nodes[net] = pe.netops.create_node(nl)
+            pe.netops.add_to_node(nl, m, k, nodes[net])
+        devs[name] = m
+    return SimpleNamespace(c=c, nodes=nodes, devs=devs, mod=mod)
+
+
+def build_port(spec, device, env=None, **kw):
+    return build(tpe, tcircuit, spec, env, device=device, **kw)
+
+
+def divider(v=4.0, r1=1e3, r2=3e3):
+    return [("v", "VDC", {"V": v}, ("top", "0")),
+            ("r1", "RESISTANCE", {"r": r1}, ("top", "mid")),
+            ("r2", "RESISTANCE", {"r": r2}, ("mid", "0"))]
+
+
+def diode_load(v=5.0, r=1e3, **pn):
+    """VDC - R - diode to ground (tests/test_nonlinear.py)."""
+    return [("v", "VDC", {"V": v}, ("in", "0")),
+            ("r", "RESISTANCE", {"r": r}, ("in", "d")),
+            ("d", "PN_JUNCTION", dict(pn), ("d", "0"))]
+
+
+def _unported(b):
+    from phy_engine_tpu_torch.models import INPUT
+    c, nl, dev = b.c, b.c.nl, b.c.device
+    yield "14", lambda: tpe.Circuit(mesh=object(), device=dev)
+    yield "14", lambda: c.dc_sweep(b.devs["v"], "V", [1.0], mesh=object())
+    yield "14", lambda: c.temp_sweep([1.0], mesh=object())
+    yield "14", lambda: c.monte_carlo({}, 2, mesh=object())
+    yield "9", lambda: c.noise(b.nodes["mid"])
+    yield "9", lambda: c.sens(b.nodes["mid"])
+    yield "9", lambda: c.sens_ac(b.nodes["mid"])
+    yield "13", tpe.Circuit(nl, solver="sparse", device=dev).analyze
+    yield "13", tpe.Circuit(nl, sparse_threshold=2, device=dev).analyze
+
+    def mixed():
+        m = tpe.netops.add_model(nl, INPUT, {"boolean": 1.0})
+        tpe.netops.add_to_node(nl, m, 0, b.nodes["mid"])
+        c.analyze()
+    yield "12", mixed
+
+
+def unported_routes_raise(device) -> int:
+    """Each route the port does not take yet raises NotImplementedError
+    naming its ROADMAP item; none falls back to another solver or
+    device.  Returns the number of routes held."""
+    b = build_port(divider(), device)
+    b.c.set_analyze_type(b.mod.AnalyzeType.OP)
+    assert b.c.analyze()
+    routes = list(_unported(b))
+    for item, call in routes:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+            call()
+    return len(routes)

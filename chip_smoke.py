@@ -110,8 +110,43 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               time (CUDA events around each call), and (b)'s
               circuit-steps/s.
 
+12. BSIM3 — the port's copy of bench_bsim3.py: the 31-stage BSIM3
+              inverter chain (62 BSIM3v3.2 devices a lane, 37 unknowns
+              padded to 128), TROP seed by the gmin ladder on the card,
+              then workloads.bsim3_transient, B = 256 lanes of Vth0 jitter,
+              100 steps of 0.1 ns, solver "frozen", max_iter 256: every
+              lane converges; gj_inverse32 and gj_solve32 launched at
+              (256, 128); lanes 0-3 over the first 10 steps against a CPU
+              run of the frozen path on the same 256 lanes (1e-6 of
+              max|trace|) and, as
+              bench_bsim3.py:288-305 records it, against the per-lane
+              dense f64 transient on the CPU (per-sample, 1e-6 V floor;
+              printed with its 1e-6 gate, as the bench prints it, not
+              held).  Prints the seed's wall apart, circuit-steps/s,
+              frozen iterations, refactors and bursts per iteration, how
+              often the rescue ladder ran and what it left, the BSIM3
+              stamps' and step updates' share of the wall (CUDA events
+              around each call) and peak memory.  Times the BSIM3_NMOS
+              stamp at (256, 31) with its Jacobian taken three ways:
+              models/dual.py (the port's), torch.func.vmap over
+              torch.func.jvp (torch.func.jacfwd's scheme) and one
+              torch.func.jvp per terminal; held to 1e-12 of each other.
+              Then the Circuit path on
+              the same chain (g_min 1e-12): OP through gmin stepping from
+              x = 0 on the card (printed: it fails the driver's residual
+              check, as the JAX package's does), then, on the card and on
+              the CPU from the TROP seed, OP, noise at stage 1's output
+              (next to the switching point) over 101 log points 1 kHz -
+              1 GHz, sens of that node, sens_ac over 21 points; each within
+              1e-6 of the CPU's largest |value| (per family for the
+              gradients; a family that is 0 on the CPU against the whole
+              analysis's largest; an all-zero reference fails), with its
+              wall and lu_solve_gauss calls.  Phase 2
+              holds and times the GJ pair at (256, 128) for it.
+
 Then it prints the nvidia-smi line, one JSON line with each kernel's
-measurements, and, last, {"ok": true, "device": {...}}.
+measurements (the GJ pair also at phase 12's shape, "...@256x128", with
+phase 12's launches), and, last, {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -125,7 +160,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from phy_engine_tpu_torch import ACSweepType, AnalyzeType, Circuit, workloads
+from phy_engine_tpu_torch import (ACSweepType, AnalyzeType, Circuit,
+                                  Environment, workloads)
 from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
 from phy_engine_tpu_torch.ops import _build, gj, linsolve, lu_block
@@ -162,6 +198,7 @@ TURBO = dict(name="turbo_tick", wrapper=turbo.run_turbo,
              source="phy_engine_tpu_torch/ops/csrc/turbo.cu",
              replaces="phy_engine_tpu/digital/turbo.py:665")
 TRACE_TOL = 1e-6
+AT128 = "@256x128"      # the GJ pair at phase 12's shape, (B, n) = (256, 128)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and FP32
 # on the CUDA cores (an FMA counts two).  32-bit bitwise logic: 64 results
@@ -320,6 +357,34 @@ def phase2_kernels(dev):
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
         say_split(name, 256, 256, Ad, bd)
+    # the GJ pair at phase 12's shape, (B, n) = (256, 128): held on the
+    # four systems, then timed as at (256, 256)
+    for name in ("gj_inverse32", "gj_solve32"):
+        r = results[name + AT128] = {"max_abs_err": 0.0}
+        for case in CASES:
+            if case == "block_singular":
+                continue
+            A, b = system(case, 256, 128, seed=7)
+            Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
+            e_plain, e_np, err = hold(name, A, b, case, Ad, bd)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            say(2, f"{name} B=256 n=128 {case}: rel err vs plain "
+                f"{e_plain:.3e}, vs numpy {e_np:.3e}")
+        A, b = system("random", 256, 128, seed=2)
+        Ad, bd = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
+        t = [time_ms(lambda: run_kernel(name, Ad, bd, plain=True), 3),
+             time_ms(lambda: run_kernel(name, Ad, bd), 20),
+             time_ms(lambda: run_kernel(name, Ad, bd), 20),
+             time_ms(lambda: run_kernel(name, Ad, bd, plain=True), 3)]
+        r["ms"], r["plain_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        r["library_ms"] = time_ms(
+            lambda: run_kernel(name, Ad, bd, library=True), 20)
+        r["bound_ms"], r["bound_by"] = gj_bound(name, 256, 128)
+        say(2, f"{name} B=256 n=128 (phase 12's shape): kernel {t[1]:.4f} / "
+            f"{t[2]:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f} % of bound), "
+            f"plain {t[0]:.4f} / {t[3]:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
     # every kernel at bench_mxu.py's larger shapes on random systems,
     # against its plain version and numpy, timed beside its plain version
     # (one timed rep at n = 1024) and the library call
@@ -684,30 +749,40 @@ def phase10_past_1024(dev, smi):
     say(10, f"final x, inv=block vs inv=gj: rel err {rel:.3e}")
 
 
-class GaussCalls:
-    """Counts and times ``ops/linsolve.py::lu_solve_gauss`` (the dense
-    f64 solve of the Circuit driver, reached through ``dense_solve``):
-    CUDA events around each call, read after the run."""
+class Counted:
+    """Swaps ``owner.name`` for a wrapper that times each call with CUDA
+    events (``timed=True``) or only counts it, and restores it on exit.
+    ``record(out, args, kwargs)`` sees each call's result."""
 
-    def __init__(self):
-        self.orig = linsolve.lu_solve_gauss
-        self.events = []
+    def __init__(self, owner, name, timed=False, record=None):
+        self.owner, self.name = owner, name
+        self.timed, self.record = timed, record
+        self.orig = getattr(owner, name)
+        self.calls, self.events = 0, []
 
     def __enter__(self):
-        linsolve.lu_solve_gauss = self._call
+        def call(*args, **kwargs):
+            self.calls += 1
+            if self.timed:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = self.orig(*args, **kwargs)
+            if self.timed:
+                ev[1].record()
+                self.events.append(ev)
+            if self.record is not None:
+                self.record(out, args, kwargs)
+            return out
+        object.__setattr__(self.owner, self.name, call)
         return self
 
     def __exit__(self, *exc):
-        linsolve.lu_solve_gauss = self.orig
+        object.__setattr__(self.owner, self.name, self.orig)
 
-    def _call(self, A, b):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = self.orig(A, b)
-        ev[1].record()
-        self.events.append(ev)
-        return out
+    def seconds(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
     def take(self):
         """(calls, mean ms a call) since the last take."""
@@ -716,6 +791,13 @@ class GaussCalls:
         ms = sum(a.elapsed_time(b) for a, b in self.events)
         self.events = []
         return n, (ms / n if n else 0.0)
+
+
+def gauss_calls():
+    """Counts and times ``ops/linsolve.py::lu_solve_gauss`` (the dense f64
+    solve of the Circuit driver, reached through ``dense_solve`` and
+    ``GaussSolve``): CUDA events around each call, read by ``take``."""
+    return Counted(linsolve, "lu_solve_gauss", timed=True)
 
 
 def timed(fn):
@@ -752,7 +834,7 @@ def phase11_circuit(dev, smi, stages=workloads.N_STAGES, lanes=256,
               f"{what}: card vs CPU {rel:.3e} > {TRACE_TOL}")
         return rel
 
-    with GaussCalls() as gauss:
+    with gauss_calls() as gauss:
         def report(what, sec, extra=""):
             calls, ms = gauss.take()
             say(11, f"{what}: wall {sec:.3f} s on {smi}; lu_solve_gauss "
@@ -836,6 +918,267 @@ def phase11_circuit(dev, smi, stages=workloads.N_STAGES, lanes=256,
         rel_c = held("(c) lanes 0-3", res.x[:4], x4.numpy())
     say(11, f"card vs CPU: (b) lanes 0-3 steps 1-{n_check} {rel_b:.3e}, "
         f"(c) lanes 0-3 {rel_c:.3e}")
+
+
+def _jac_vmap(f, v):
+    """torch.func.jacfwd's scheme over a whole family: torch.func.vmap over
+    the k unit tangents of one torch.func.jvp; J (..., r, c) as
+    ``models/dual.py::jacobian`` returns it."""
+    k = v.shape[-1]
+    eye = torch.eye(k, dtype=v.dtype, device=v.device)
+    basis = eye.reshape((k,) + (1,) * (v.dim() - 1) + (k,)) \
+        .expand((k,) + v.shape)
+    out, jt = torch.func.vmap(lambda t: torch.func.jvp(f, (v,), (t,)),
+                              out_dims=(None, 0))(basis)
+    return out, jt.movedim(0, -1)
+
+
+def _jac_jvps(f, v):
+    """One torch.func.jvp per input, each with one unit tangent."""
+    cols = []
+    for c in range(v.shape[-1]):
+        t = torch.zeros_like(v)
+        t[..., c] = 1.0
+        out, jt = torch.func.jvp(f, (v,), (t,))
+        cols.append(jt)
+    return out, torch.stack(cols, dim=-1)
+
+
+def jacobian_routes(dev, smi, ir, x, lanes, reps=5):
+    """The BSIM3_NMOS stamp (TR mode) at the main path's shape, at the
+    bias ``x`` (lanes, n), with ``models/bsim3.py``'s Jacobian taken by
+    dual.jacobian, by torch.func.vmap(jvp) and by one torch.func.jvp a
+    terminal: ms a call (CUDA events, after a warm-up) and the largest
+    difference from dual's stamp relative to its max|entry|."""
+    from phy_engine_tpu_torch.models import bsim3, dual
+    from phy_engine_tpu_torch.models.base import StampCtx
+    fam = next(f for f in ir.families if f.mdef.id_name == "BSIM3_NMOS")
+    params = workloads.bsim3_params(ir, lanes, dev)
+    x_ext = analog._ext(x)
+    st = batch_state(ir, lanes, dev)
+    ctx = StampCtx(mode="tr", t=0.0, dt=workloads.BSIM3_DT,
+                   env=workloads.default_env())
+    out, ms = {}, {}
+    try:
+        for name, jac in (("dual", dual.jacobian), ("vmap_jvp", _jac_vmap),
+                          ("jvp_each", _jac_jvps)):
+            bsim3._jac = jac
+            call = lambda: analog._stamp_family(ir, fam, params, x_ext, st,
+                                                ctx)
+            ms[name] = time_ms(call, reps)
+            out[name] = call()[:2]
+    finally:
+        bsim3._jac = dual.jacobian
+    err = {}
+    for name in ("vmap_jvp", "jvp_each"):
+        err[name] = max(float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(out[name], out["dual"]))
+        check(err[name] <= 1e-12, f"BSIM3 stamp by {name} differs from "
+              f"dual.jacobian's: {err[name]:.3e}")
+    n_inst = params["BSIM3_NMOS"].shape[1]
+    say(12, f"BSIM3_NMOS stamp at ({lanes}, {n_inst}) by its Jacobian route "
+        f"on {smi}: dual.jacobian {ms['dual']:.3f} ms, torch.func.vmap(jvp) "
+        f"{ms['vmap_jvp']:.3f} ms ({err['vmap_jvp']:.1e} from dual's), one "
+        f"torch.func.jvp a terminal {ms['jvp_each']:.3f} ms "
+        f"({err['jvp_each']:.1e})")
+
+
+def phase12_bsim3(dev, smi, results, steps=100, lanes=256, n_check=10):
+    """The BSIM3 inverter chain (see the module docstring, phase 12).
+    Returns the GJ pair's launches in the timed transient."""
+    from phy_engine_tpu_torch.models import MODEL_REGISTRY
+    stages = workloads.BSIM3_STAGES
+    ir = workloads.build_bsim3_ir(stages)
+    n, nn = ir.n_unknowns, ir.n_nodes
+    npad = analog._npad(n)
+    start, seed_s = timed(lambda: workloads.bsim3_seed(ir, dev))
+    say(12, f"{stages}-stage BSIM3 chain ({2 * stages} BSIM3 devices a lane, "
+        f"{n} unknowns, padded to {npad}): TROP seed, "
+        f"{len(workloads.BSIM3_GMIN_LADDER)} gmin rungs 1e-2 .. 1e-12 of the "
+        f"per-lane dense f64 Newton at the nominal point, converged: wall "
+        f"{seed_s:.3f} s on {smi}")
+    fams = [MODEL_REGISTRY[k] for k in ("BSIM3_NMOS", "BSIM3_PMOS")]
+    hooks = [Counted(m, h, timed=True) for m in fams
+             for h in ("stamp", "step_update")]
+    rescued = []
+
+    def took(out, args, kwargs):
+        rescued.append(int(out[2].sum()))
+
+    frozen = Counted(analog, "_frozen_resid_cached")
+    rescue = Counted(analog, "newton_solve_batched", record=took)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+    with frozen, rescue, hooks[0], hooks[1], hooks[2], hooks[3]:
+        xs, sec = timed(lambda: workloads.bsim3_transient(
+            batch=lanes, steps=steps, device=dev, start=start))
+    launches = {name: KERNELS[name]["wrapper"].launches
+                for name in ("gj_inverse32", "gj_solve32")}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(tuple(xs.shape) == (steps, lanes, n), f"BSIM3 chain xs shape "
+          f"{tuple(xs.shape)}")
+    check(bool(torch.isfinite(xs).all()), "BSIM3 chain: non-finite x")
+    for name, count in launches.items():
+        check(count > 0, f"BSIM3 chain never launched {name}")
+    check(KERNELS["lu_block_inverse32"]["wrapper"].launches == 0,
+          "BSIM3 chain launched lu_block_inverse32")
+    b3 = sum(h.seconds() for h in hooks)
+    iters = frozen.calls
+    say(12, f"frozen transient B={lanes} x {steps} steps of "
+        f"{workloads.BSIM3_DT:g} s, max_iter 256: every lane converged; wall "
+        f"{sec:.3f} s, {lanes * steps / sec:.1f} circuit-steps/s on {smi}; "
+        f"{iters} frozen iterations ({iters / steps:.1f} a step); refactors "
+        f"{launches['gj_inverse32']} (gj_inverse32), bursts "
+        f"{launches['gj_solve32']} (gj_solve32) at (B, n) = ({lanes}, "
+        f"{npad}): {launches['gj_inverse32'] / iters:.3f} + "
+        f"{launches['gj_solve32'] / iters:.3f} launches a frozen iteration; "
+        f"peak device memory {peak:.0f} MiB")
+    say(12, f"rescue ladder (newton_solve_batched 'hybrid'): ran on "
+        f"{rescue.calls} of {steps} steps, lanes it left unconverged "
+        f"{sum(lanes - r for r in rescued) if rescued else 0}; BSIM3 stamp "
+        f"+ step update {b3:.3f} s = {100 * b3 / sec:.1f} % of the wall "
+        f"({hooks[0].calls + hooks[2].calls} stamp, "
+        f"{hooks[1].calls + hooks[3].calls} step-update calls) on {smi}")
+    say(12, "launches x phase 2's per-call time at (256, 128): " + ", ".join(
+        f"{name} {launches[name]} x {results[name + AT128]['ms']:.4f} ms = "
+        f"{launches[name] * results[name + AT128]['ms'] / 1e3:.4f} s"
+        for name in launches) + f" of the {sec:.3f} s wall")
+
+    # lanes 0-3 on the CPU: the same frozen path over the same 256 lanes
+    # (its refactor decisions span the batch, so fewer lanes would be
+    # another computation), and the bench's per-lane dense f64 reference
+    # (bench_bsim3.py:288-305), over the first steps
+    p_cpu = workloads.bsim3_params(ir, lanes, "cpu")
+    start_cpu = (start[0].cpu(), {k: {v: a.cpu() for v, a in d.items()}
+                                  for k, d in start[1].items()})
+    (xs_c, ok_c), cpu_s = timed(lambda: workloads.bsim3_run(
+        ir, p_cpu, start_cpu, n_check))
+    check(bool(ok_c.all()), "BSIM3 chain: a CPU lane failed")
+    card = xs[:n_check].cpu()
+    rel = float((card[:, :4] - xs_c[:, :4]).abs().max()
+                / xs_c[:, :4].abs().max())
+    rel_all = float((card - xs_c).abs().max() / xs_c.abs().max())
+    check(rel <= TRACE_TOL, f"BSIM3 chain lanes 0-3 vs CPU frozen {rel:.3e} "
+          f"> {TRACE_TOL}")
+    p4 = {k: v[:4].clone() for k, v in p_cpu.items()}
+    x_b = start_cpu[0].expand(4, -1).clone()
+    st_b = {k: {v: a.expand((4,) + a.shape[1:]).clone() for v, a in d.items()}
+            for k, d in start_cpu[1].items()}
+    (_x, _st, okd, xsd), ref_s = timed(lambda: analog.transient(
+        ir, p4, x_b, st_b, workloads.default_env(), 0.0, workloads.BSIM3_DT,
+        n_check))
+    check(bool(okd.all()), "BSIM3 chain: a dense f64 CPU lane failed")
+    ref = xsd.transpose(0, 1)[:, :, :nn].numpy()
+    acc = card[:, :4, :nn].numpy()
+    floor = 1e-6
+    rel_b = float((np.abs(acc - ref) / (np.abs(ref) + floor)).max())
+    say(12, f"lanes 0-3, steps 1-{n_check}: vs a CPU run of the frozen path "
+        f"on the same {lanes} lanes {rel:.3e} (<= {TRACE_TOL}; all {lanes} "
+        f"lanes {rel_all:.3e}; {cpu_s:.1f} s); bench record "
+        f"(bench_bsim3.py:288-305) vs the per-lane dense f64 transient on the "
+        f"CPU, per-sample relative error with a {floor:g} V floor: "
+        f"{rel_b:.3e}, quality_gate_1e6 {rel_b <= 1e-6} ({ref_s:.1f} s); "
+        f"card {smi}")
+    jacobian_routes(dev, smi, ir, xs[-1], lanes)
+
+    # the Circuit path on the same chain, card against CPU, with the
+    # seed's last g_min (1e-12) as the environment's: at g_min = 0 the OP
+    # of 31 stages whose input sits at the switching point does not hold
+    # (Newton from a converged point drifts off).  From x = 0 the gmin
+    # ladder converges on every rung but its end point fails the driver's
+    # row-wise residual check (rel ~3.5e-5 > 1e-6 on a stage output at
+    # ~2e-12 V, whose row scale is ~5e-14 A), as the JAX package's Circuit
+    # does on this chain; so the analyses then start from the TROP seed,
+    # written into the netlist's node voltages and branch currents (the
+    # Circuit's warm start), where the OP converges by plain Newton.  The
+    # output is stage 1's, next to the 1.5 V switching point (AC gain ~1e3
+    # at 1 kHz): from stage 2 on the outputs sit at the rails, where the AC
+    # magnitude and every sens_ac gradient are 0.
+    out = {}
+    x_seed = start[0][0].cpu().numpy()
+    with gauss_calls() as gauss:
+        for where in (dev, "cpu"):
+            c = Circuit(workloads.bsim3_chain_netlist(stages),
+                        env=Environment(g_min=workloads.BSIM3_GMIN_LADDER[-1]),
+                        device=where)
+            node = c.nl.nodes[3]          # vdd, bias, in, stage 1
+            c.ac.sweep = ACSweepType.LOG
+            c.ac.omega_start, c.ac.omega_stop = 2 * np.pi * 1e3, \
+                2 * np.pi * 1e9
+            r = {}
+            c.set_analyze_type(AnalyzeType.OP)
+            if where == dev:
+                cold, cold_s = timed(c.analyze)
+                calls, ms = gauss.take()
+                say(12, f"Circuit OP from x = 0 (gmin stepping): ok {cold}, "
+                    f"wall {cold_s:.3f} s on {smi}; lu_solve_gauss {calls} "
+                    f"calls, {ms:.3f} ms a call")
+            ir_c = c.prepare()
+            for i, nd in enumerate(ir_c.node_list):
+                nd.voltage = complex(x_seed[i])
+            for fam in ir_c.families:
+                for inst in fam.instances:
+                    for br in inst.branches:
+                        br.current = complex(x_seed[br.index])
+            c.prepare(force=True)
+            r["op"], r["op_s"] = timed(c.analyze)
+            check(r["op"], f"BSIM3 chain Circuit OP from the seed failed on "
+                  f"{where}")
+            r["x"] = c._x.cpu().numpy()
+            r["op_calls"] = gauss.take()
+            c.ac.points = 101
+            r["noise"], r["noise_s"] = timed(lambda: c.noise(node))
+            r["noise_calls"] = gauss.take()
+            r["sens"], r["sens_s"] = timed(lambda: c.sens(node))
+            r["sens_calls"] = gauss.take()
+            c.ac.points = 21
+            r["sens_ac"], r["sens_ac_s"] = timed(lambda: c.sens_ac(node))
+            r["sens_ac_calls"] = gauss.take()
+            out[where] = r
+    g, h = out[dev], out["cpu"]
+
+    def held(what, a, b, scale=None):
+        """Card ``a`` against CPU ``b`` relative to max|b|; a family whose
+        gradients are all 0 on the CPU (a capacitor at DC) is held
+        against the whole analysis's ``scale``.  A comparison with no
+        nonzero reference fails: zeros against zeros prove nothing."""
+        a, b = np.asarray(a), np.asarray(b)
+        s_ = float(np.abs(b).max()) or (scale or 0.0)
+        check(s_ > 0.0, f"BSIM3 Circuit {what}: the CPU reference is all 0")
+        e = float(np.abs(a - b).max() / s_)
+        check(np.isfinite(a).all() and e <= TRACE_TOL,
+              f"BSIM3 Circuit {what}: card vs CPU {e:.3e} > {TRACE_TOL}")
+        return e
+
+    def held_grads(what, card, host):
+        scale = max(float(np.abs(v).max()) for v in host.values())
+        check(scale > 0.0, f"BSIM3 Circuit {what}: every gradient is 0")
+        return max(held(f"{what} {k}", card[k], v, scale)
+                   for k, v in host.items())
+
+    errs = {"op": held("OP", g["x"], h["x"]),
+            "noise": max(held("onoise", g["noise"].onoise_psd,
+                              h["noise"].onoise_psd),
+                         *(held(f"noise {k}", g["noise"].contribs[k], v)
+                           for k, v in h["noise"].contribs.items())),
+            "sens": held_grads("sens", g["sens"].grads, h["sens"].grads),
+            "sens_ac": max(held("sens_ac |V|", g["sens_ac"][1],
+                                h["sens_ac"][1]),
+                           held_grads("sens_ac", g["sens_ac"][2].grads,
+                                      h["sens_ac"][2].grads))}
+    for what, key in (("OP from the TROP seed", "op"),
+                      ("noise at stage 1's output, 101 points 1 kHz "
+                       "- 1 GHz", "noise"),
+                      ("sens of that node at the OP", "sens"),
+                      ("sens_ac of that node, 21 points", "sens_ac")):
+        calls, ms = g[f"{key}_calls"]
+        say(12, f"Circuit {what}: wall "
+            f"{g[f'{key}_s']:.3f} s on {smi} (CPU {h[f'{key}_s']:.3f} s); "
+            f"lu_solve_gauss {calls} calls, {ms:.3f} ms a call; card vs CPU "
+            f"{errs[key]:.3e}")
+    return launches
 
 
 def main():
@@ -974,9 +1317,18 @@ def main():
     phase11_circuit(dev, smi)
     say(11, f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 12: the BSIM3 inverter chain, and the Circuit path on it
+    t0 = time.perf_counter()
+    launches12 = phase12_bsim3(dev, smi, results)
+    for name, count in launches12.items():
+        launches[name + AT128] = count
+    say(12, f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
     print(smi)
     meta = {k: dict(source=v["source"], replaces=v["replaces"])
             for k, v in KERNELS.items()}
+    for name in launches12:
+        meta[name + AT128] = meta[name]
     meta[TURBO["name"]] = dict(source=TURBO["source"],
                                replaces=TURBO["replaces"])
     print(json.dumps({"kernels": [

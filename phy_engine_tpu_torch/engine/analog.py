@@ -498,14 +498,19 @@ def assemble_ac(ir: AnalogIR, params, states, omegas):
             zplan.sum(_cat(zr, like)), zplan.sum(_cat(zi, like)))
 
 
+def split_real(Ar, Ai):
+    """The real 2n x 2n form [[Ar, -Ai], [Ai, Ar]] of Ar + jAi, over a
+    leading batch dimension."""
+    return torch.cat([torch.cat([Ar, -Ai], dim=2),
+                      torch.cat([Ai, Ar], dim=2)], dim=1)
+
+
 def ac_sweep(ir: AnalogIR, params, states, omegas):
     """Solve the complex MNA at every omega of the grid in one batched
     split-real f64 solve.  Returns (xs_re, xs_im), each (W, n)."""
     n = ir.n_unknowns
     Ar, Ai, Zr, Zi = assemble_ac(ir, params, states, omegas)
-    M = torch.cat([torch.cat([Ar, -Ai], dim=2),
-                   torch.cat([Ai, Ar], dim=2)], dim=1)
-    x = dense_solve(M, torch.cat([Zr, Zi], dim=1))
+    x = dense_solve(split_real(Ar, Ai), torch.cat([Zr, Zi], dim=1))
     return x[:, :n], x[:, n:]
 
 

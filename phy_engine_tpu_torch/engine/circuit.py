@@ -6,8 +6,9 @@ API parity with ``phy_engine::circult`` (circuits/circuit.h:60-177):
 with results sampled back onto the netlist objects (node voltages, branch
 currents, device runtime state), plus the JAX package's extensions:
 gmin stepping, adaptive TR, ``.DC`` / temperature sweeps, Monte-Carlo,
-``.FOUR``, ``.TF`` and ``.PZ``.  Digital-only netlists run through
-``digital_run`` / ``digital_run_batch`` on the turbo kernel.
+``.FOUR``, ``.TF``, ``.PZ``, ``.NOISE`` and ``.SENS``.  Digital-only
+netlists run through ``digital_run`` / ``digital_run_batch`` on the turbo
+kernel.
 
 ``analyze()`` lowers the netlist once per structural version; parameter
 edits (``set_attribute``) repack the parameter matrices at the next
@@ -16,10 +17,9 @@ analysis without relowering.  The persistent transient clock
 lives on ``Circuit.device`` ("cuda" unless the caller passes "cpu").
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item: noise and sensitivity analyses (item 9), analog plus
-digital devices in one netlist (item 12), the sparse route for
-``solver="sparse"`` or n >= ``sparse_threshold`` (item 13), and the mesh
-routes (item 14).
+queue 1 item: analog plus digital devices in one netlist (item 12), the
+sparse route for ``solver="sparse"`` or n >= ``sparse_threshold`` (item
+13), and the mesh routes (item 14).
 """
 
 from __future__ import annotations
@@ -364,15 +364,59 @@ class Circuit:
         self._writeback_complex(xs[-1])
         return True
 
-    # -- analyses of later slices -----------------------------------------
+    # -- noise and sensitivity (extensions of the JAX package) ------------
     def noise(self, out_node: Node, src=None):
-        raise _todo("Circuit.noise", "9")
+        """Small-signal noise sweep over the AC ω grid (SPICE .NOISE):
+        the output voltage noise PSD [V²/Hz] at ``out_node`` by the
+        adjoint-network method (``engine/noise.py``); ``src`` an optional
+        V-source whose branch row gives the unit excitation for the
+        input-referred PSD.  Runs an OP first so nonlinear devices hold
+        their bias-point linearizations.  Returns a ``NoiseResult`` or
+        None when the bias point fails."""
+        from .noise import NoiseResult, noise_sweep
+        self.prepare()
+        if not self._analyze_op("op"):
+            return None
+        out_idx = self._node_index(out_node)
+        src_row = None if src is None else self._src_row(src, "noise")
+        grid = self._omega_grid()
+        onoise, gain2, contribs = noise_sweep(
+            self._ir, self._params(), self._x, self._states,
+            self._tensor(grid), out_idx, src_row, self._env_scalars())
+        return NoiseResult(grid / (2.0 * np.pi), onoise, gain2, contribs)
 
     def sens(self, out):
-        raise _todo("Circuit.sens", "9")
+        """SPICE .SENS (DC): d(out)/d(param) for every parameter of every
+        device at the OP, one reverse sweep through the assembly and the
+        adjoint solve (``engine/sens.py``).  ``out`` is a Node (its
+        voltage) or a branch device such as a V source (its branch
+        current).  Returns a ``SensResult`` or None when the bias point
+        fails."""
+        from .sens import SensResult, sens_op
+        self.prepare()
+        if not self._analyze_op("op"):
+            return None
+        params = self._params()
+        grads = sens_op(self._ir, params, self._x, self._states,
+                        self._env_scalars(), self._out_index(out))
+        return SensResult(self._ir, grads, params)
 
     def sens_ac(self, out):
-        raise _todo("Circuit.sens_ac", "9")
+        """SPICE .SENS (AC): d|V(out)|/d(param) over the AC ω grid,
+        chained through the bias point and the saved small-signal
+        linearizations.  Returns ``(freqs, mag, SensResult)`` — each row
+        value an (nω,) array — or None when the bias point fails."""
+        from .sens import SensResult, sens_ac
+        self.prepare()
+        if not self._analyze_op("op"):
+            return None
+        params = self._params()
+        grid = self._omega_grid()
+        mag, grads = sens_ac(self._ir, params, self._x, self._states,
+                             self._env_scalars(), self._out_index(out),
+                             self._tensor(grid))
+        return (grid / (2.0 * np.pi), mag.cpu().numpy(),
+                SensResult(self._ir, grads, params))
 
     # -- sweeps ------------------------------------------------------------
     def _node_index(self, node: Node) -> int:

@@ -1,6 +1,7 @@
 """Device families of the port: every analog family of the JAX package
-but BSIM3 (linear, waveform sources, switch and relay, PN, BJT, MOSFET,
-full-bridge rectifier), and the digital gates' metadata."""
+(linear, waveform sources, switch and relay, PN, BJT, MOSFET, full-bridge
+rectifier, BSIM3v3.2 and its terminal-parasitic variant), and the
+digital gates' metadata."""
 
 from .base import (MODEL_REGISTRY, DeviceClass, ModelDef, StampCtx,  # noqa: F401
                    UpdatePhase, register)
@@ -11,6 +12,8 @@ from .sources import SAWTOOTH, SQUARE, PULSE, TRIANGLE  # noqa: F401
 from .nonlinear import (PN_JUNCTION, BJT_NPN, BJT_PNP, NMOSFET,  # noqa: F401
                         PMOSFET, FULL_BRIDGE_RECTIFIER)
 from .controller import SWITCH, RELAY  # noqa: F401
+from .bsim3 import (BSIM3V32_NMOS, BSIM3V32_PMOS, BSIM3V32_NMOS_RC,  # noqa: F401
+                    BSIM3V32_PMOS_RC)
 from .digital_gates import (AND, OR, NOT, YES, XOR, XNOR, NAND, NOR, IMP,  # noqa: F401
                             NIMP, INPUT, OUTPUT, TRI_STATE, RESOLVE2,
                             CASE_EQ, IS_UNKNOWN, TICK_DELAY, SCHMITT_TRIGGER,

@@ -18,7 +18,12 @@ the Monte-Carlo batch (or absent).
   point from ``state``);
 * ``step_update(P, v, ib, state, dt, t)`` -> new_state (transient
   companion recurrence between accepted steps);
-* ``check_conv(P, v, state)`` -> (..., n_inst) bool convergence veto.
+* ``check_conv(P, v, state)`` -> (..., n_inst) bool convergence veto;
+* ``noise(P, v, ib, state, env, f)`` -> (..., n_inst, len(noise_pairs))
+  one-sided current-noise PSDs [A^2/Hz] at the bias point, ``f`` a
+  frequency tensor of ``P[..., 0]``'s shape;
+* ``noise_corr(P, v, ib, state, env, f, omega)`` -> (..., n_inst,
+  len(noise_corr_pairs), 4) correlated source groups.
 
 Digital families carry metadata only (``digital_op``, ``din_pins``,
 ``dout_pins``): their behaviour lives in :mod:`..digital`.
@@ -80,6 +85,25 @@ class ModelDef:
     nonlinear: bool = False
     # internal unknowns per instance, appended to the pin vector
     n_internal: int = 0
+
+    # ---- noise hooks (an extension of the JAX package: the reference
+    #      has no noise analysis, bsim3v32.h:28-29) ----
+    # noise(P, v, ib, state, env, f): one-sided current-noise PSD [A^2/Hz]
+    # per source at the OP bias (v = pin voltages incl. internal nodes,
+    # ib = branch currents), last dim len(noise_pairs).
+    noise: Optional[Callable] = None
+    # per-source (pin_i, pin_j) index pairs into the instance pin vector:
+    # the noise current source is connected between them.
+    noise_pairs: Tuple[Tuple[int, int], ...] = ()
+    # noise_corr(P, v, ib, state, env, f, omega): per group (S_aa, S_bb,
+    # Re S_ab, Im S_ab), the one-sided cross-PSDs [A^2/Hz] between current
+    # sources on pair_a and pair_b, last dims (len(noise_corr_pairs), 4).
+    # Contribution: S_aa|Ga|^2 + S_bb|Gb|^2 + 2 Re(Ga conj(Gb) S_ab) with
+    # Ga / Gb the adjoint transfers.
+    noise_corr: Optional[Callable] = None
+    # ((pair_a, pair_b), ...) with each pair = (pin_i, pin_j).
+    noise_corr_pairs: Tuple[Tuple[Tuple[int, int],
+                                  Tuple[int, int]], ...] = ()
 
     # ---- digital metadata ----
     digital_op: Optional[str] = None       # opcode key into digital engine

@@ -84,11 +84,17 @@ def _r_ac(P, state, omega):
     return _quad(g), zeros(g, 4), zeros(g, 0), zeros(g, 0)
 
 
+def _r_noise(P, v, ib, state, env, f):
+    """Johnson-Nyquist thermal noise, current form: S_i = 4kT/R."""
+    T = env["temperature"] + 273.15
+    return (4.0 * 1.380649e-23 * T / P[..., 0])[..., None]
+
+
 RESISTANCE = register(ModelDef(
     name="Resistance", id_name="R", device_class=DeviceClass.LINEAR,
     pins=("A", "B"), defaults={"r": 1000.0}, param_order=("r",),
     pattern=pat_g2, rhs_pattern=no_rhs, stamp=_r_stamp, ac_stamp=_r_ac,
-    attrs=("R",),
+    attrs=("R",), noise=_r_noise, noise_pairs=((0, 1),),
 ))
 
 

@@ -160,6 +160,13 @@ def _pn_check_conv(P, v, state):
     return torch.abs(ud_raw - state["ud_last"]) <= 2.0 * N * Ut + 1e-9
 
 
+def _pn_noise(P, v, ib, state, env, f):
+    """SPICE diode noise: shot 2q·|Id| + flicker kf·|Id|^af / f."""
+    _g, Id = _pn_eval(P, v[..., 0] - v[..., 1])
+    kf, af = P[..., 10], P[..., 11]
+    return (2.0 * _Q_E * Id.abs() + kf * Id.abs() ** af / f)[..., None]
+
+
 PN_JUNCTION = register(ModelDef(
     name="PN Junction", id_name="PN", device_class=DeviceClass.NONLINEAR,
     pins=("A", "B"), check_conv=_pn_check_conv,
@@ -175,6 +182,7 @@ PN_JUNCTION = register(ModelDef(
     stamp=_pn_stamp, ac_stamp=_pn_ac, step_update=_pn_step, nonlinear=True,
     attrs=("Is", "N", "Isr", "Nr", "Temp", "Ibv", "Bv", "Area", "tt",
            "kf", "af"),
+    noise=_pn_noise, noise_pairs=((0, 1),),
 ))
 
 
@@ -238,6 +246,23 @@ def _bjt_ac(P, state, omega):
     return a, zeros(geq, 8), zeros(geq, 4), zeros(geq, 4)
 
 
+def _bjt_noise(sign):
+    """SPICE BJT noise at the OP bias: base shot 2q·|Ib| (+ flicker
+    kf·|Ib|^af/f) between B-E, collector shot 2q·|Ic| between C-E, from
+    the same exponential the stamp uses."""
+    def _noise(P, v, ib, state, env, f):
+        Is_eff = P[..., 0] * P[..., 4]
+        Ute = P[..., 1] * _bjt_ut(P)
+        vj = (v[..., 0] - v[..., 2]) * sign
+        e = torch.exp(torch.clamp(vj / Ute, -200.0, 200.0))
+        i_b = (Is_eff * (e - 1.0)).abs()
+        i_c = P[..., 2] * i_b
+        kf, af = P[..., 5], P[..., 6]
+        sb = 2.0 * _Q_E * i_b + kf * i_b ** af / f
+        return torch.stack([sb, 2.0 * _Q_E * i_c], dim=-1)
+    return _noise
+
+
 def _bjt_npn_pattern(pins, brs):
     b, c, e = pins
     return [b, b, e, e, c, c, e, e], [b, e, b, e, b, e, b, e]
@@ -262,7 +287,7 @@ BJT_NPN = register(ModelDef(
     pattern=_bjt_npn_pattern,
     rhs_pattern=lambda p, b: [p[0], p[2], p[1], p[2]],
     stamp=_bjt_npn_stamp, ac_stamp=_bjt_ac, nonlinear=True,
-    attrs=_BJT_ORDER,
+    attrs=_BJT_ORDER, noise=_bjt_noise(1.0), noise_pairs=((0, 2), (1, 2)),
 ))
 
 BJT_PNP = register(ModelDef(
@@ -274,7 +299,7 @@ BJT_PNP = register(ModelDef(
     pattern=_bjt_pnp_pattern,
     rhs_pattern=lambda p, b: [p[2], p[0], p[2], p[1]],
     stamp=_bjt_pnp_stamp, ac_stamp=_bjt_ac, nonlinear=True,
-    attrs=_BJT_ORDER,
+    attrs=_BJT_ORDER, noise=_bjt_noise(-1.0), noise_pairs=((0, 2), (1, 2)),
 ))
 
 
@@ -288,10 +313,9 @@ def _mos_select(off, triode, tri, sat):
     return torch.where(off, zero, torch.where(triode, tri, sat))
 
 
-def _nmos_stamp(P, v, ib, state, ctx):
+def _mos_eval(P, vgs, vds):
+    """Square-law (i_d, gm, gds) of the NMOS orientation."""
     kp, lam, vth = P[..., 0], P[..., 1], P[..., 2]
-    vgs = v[..., 1] - v[..., 2]
-    vds = v[..., 0] - v[..., 2]
     vov = vgs - vth
     off = vov <= 0.0
     triode = vds < vov
@@ -303,6 +327,13 @@ def _nmos_stamp(P, v, ib, state, ctx):
     gds = _mos_select(off, triode,
                       kp * ((vov - vds) * (1.0 + lam * vds) + b * lam),
                       0.5 * kp * vov * vov * lam)
+    return i_d, gm, gds
+
+
+def _nmos_stamp(P, v, ib, state, ctx):
+    vgs = v[..., 1] - v[..., 2]
+    vds = v[..., 0] - v[..., 2]
+    i_d, gm, gds = _mos_eval(P, vgs, vds)
     ieq = i_d - gm * vgs - gds * vds
     a = row(gm, gds, -gds, -gds, gds, gm, -gm, -gm, gm)
     return a, row(ieq, -ieq, ieq), {"gm": gm, "gds": gds}
@@ -327,6 +358,19 @@ def _pmos_stamp(P, v, ib, state, ctx):
     ieq = i_d - gm * vsg - gds * vds
     a = row(gm, gds, -gds, -gds, gds, gm, -gm, -gm, gm)
     return a, row(ieq, -ieq, ieq), {"gm": gm, "gds": gds}
+
+
+def _mos_noise(sign):
+    """Channel thermal 8kT(gm+gds)/3 + flicker kf·|Id|^af/f between D-S,
+    from the square law the stamp uses (source-referenced vsg / vsd for
+    PMOS)."""
+    def _noise(P, v, ib, state, env, f):
+        i_d, gm, gds = _mos_eval(P, sign * (v[..., 1] - v[..., 2]),
+                                 sign * (v[..., 0] - v[..., 2]))
+        T = env["temperature"] + 273.15
+        th = (8.0 / 3.0) * _K_B * T * (gm.abs() + gds.abs())
+        return (th + P[..., 3] * i_d.abs() ** P[..., 4] / f)[..., None]
+    return _noise
 
 
 def _mos_ac(P, state, omega):
@@ -356,6 +400,7 @@ NMOSFET = register(ModelDef(
     param_order=_MOS_ORDER, state_vars=(("gm", 0.0), ("gds", 0.0)),
     pattern=_nmos_pattern, rhs_pattern=lambda p, b: [p[0], p[2]],
     stamp=_nmos_stamp, ac_stamp=_mos_ac, nonlinear=True, attrs=_MOS_ORDER,
+    noise=_mos_noise(1.0), noise_pairs=((0, 2),),
 ))
 
 PMOSFET = register(ModelDef(
@@ -364,6 +409,7 @@ PMOSFET = register(ModelDef(
     param_order=_MOS_ORDER, state_vars=(("gm", 0.0), ("gds", 0.0)),
     pattern=_pmos_pattern, rhs_pattern=lambda p, b: [p[0], p[2]],
     stamp=_pmos_stamp, ac_stamp=_mos_ac, nonlinear=True, attrs=_MOS_ORDER,
+    noise=_mos_noise(-1.0), noise_pairs=((0, 2),),
 ))
 
 

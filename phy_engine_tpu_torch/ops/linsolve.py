@@ -11,7 +11,9 @@ linsolve.py``).
   the ``Circuit`` driver.
 * ``dense_solve`` — the dtype dispatch: ``torch.linalg.solve`` for
   float32 / complex64 (as the JAX package sends them to
-  ``jnp.linalg.solve``), ``lu_solve_gauss`` otherwise.
+  ``jnp.linalg.solve``), ``lu_solve_gauss`` otherwise.  Where an input
+  requires grad (the sensitivity analysis), the f64 solve runs through
+  :class:`GaussSolve`, whose backward pass is one transposed solve.
 
 Both take a system ``(n, n)`` + ``(n,)`` or a batch ``(B, n, n)`` +
 ``(B, n)``.
@@ -49,8 +51,30 @@ def lu_solve_gauss(A, b):
     return b / torch.diagonal(A, dim1=1, dim2=2)
 
 
+class GaussSolve(torch.autograd.Function):
+    """``lu_solve_gauss`` with the adjoint of a linear solve: for x =
+    A^-1 b and an output gradient g, the backward pass solves A^T lam = g
+    with the same elimination and returns -lam x^T for A and lam for b.
+    (The JAX package differentiates through the elimination itself; the
+    two are the same derivative, equal to rounding.)"""
+
+    @staticmethod
+    def forward(ctx, A, b):
+        x = lu_solve_gauss(A, b)
+        ctx.save_for_backward(A, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        A, x = ctx.saved_tensors
+        lam = lu_solve_gauss(A.transpose(-1, -2), g)
+        return -lam[..., :, None] * x[..., None, :], lam
+
+
 def dense_solve(A, b):
     """Dtype-dispatching dense solve (see the module docstring)."""
     if A.dtype in (torch.float32, torch.complex64):
         return torch.linalg.solve(A, b)
+    if torch.is_grad_enabled() and (A.requires_grad or b.requires_grad):
+        return GaussSolve.apply(A, b)
     return lu_solve_gauss(A, b)

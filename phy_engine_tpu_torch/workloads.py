@@ -16,6 +16,13 @@ counterpart of the JAX package's ``bench.py`` headline; ``inv='block'``
 refactors with the blocked inverse (``ops.lu_block``) in place of the
 Gauss-Jordan one, as the JAX package's ``FROZEN_INV = "block"`` does.
 
+``bsim3_chain_netlist`` / ``build_bsim3_ir`` are the port's copy of
+``bench_bsim3.py``'s workload: an M-stage CMOS inverter chain of BSIM3v3.2
+devices (2M a lane, 20 fF loads) driven rail-to-rail by a 1.5 V / 100 MHz
+sine on a 1.5 V bias, VDD 3 V.  ``bsim3_seed`` is its TROP gmin ladder
+at the nominal point and ``bsim3_transient`` the Monte-Carlo frozen-Newton
+transient from that seed (Vth0 jitter 0.02 on both families).
+
 ``build_rv32`` synthesizes the in-repo RV32I-subset core
 (``data/pe_rv32.v``: the ``pe_rv32`` template with the fib-checksum ROM,
 whose ``result`` bus ends at ``RV32_EXPECT``) to gates at ``-O1``, and
@@ -37,7 +44,9 @@ from .engine.circuit import Circuit
 from .engine.environment import Environment
 from .engine.lower import lower_analog
 from .models.digital_gates import INPUT
-from .models.linear import CAPACITOR, RESISTANCE, VAC
+from .models.base import StampCtx
+from .models.bsim3 import BSIM3V32_NMOS, BSIM3V32_PMOS
+from .models.linear import CAPACITOR, RESISTANCE, VAC, VDC
 from .models.nonlinear import PN_JUNCTION
 from .netlist import operations as netops
 from .netlist.netlist import Netlist
@@ -116,6 +125,119 @@ def frozen_transient(batch: int = 256, steps: int = 100,
         ir, params, batch_x(ir, batch, device), batch_state(ir, batch, device),
         default_env(), 0.0, DT, steps, solver="frozen", inv=inv)
     return x, ok
+
+
+# ---------------------------------------------------------------------------
+# analog: the BSIM3 inverter chain (bench_bsim3.py)
+# ---------------------------------------------------------------------------
+
+BSIM3_STAGES = 31
+BSIM3_VDD, BSIM3_VP, BSIM3_FREQ = 3.0, 1.5, 1e8
+BSIM3_DT = 1e-10
+BSIM3_CLOAD = 2e-14
+BSIM3_NMOS_P = {"Kp": 2e-4, "Vth0": 0.7, "W": 10e-6, "L": 1e-6}
+BSIM3_PMOS_P = {"Kp": 1e-4, "Vth0": 0.7, "W": 20e-6, "L": 1e-6}
+BSIM3_JITTER = {"BSIM3_NMOS": {"Vth0": 0.02}, "BSIM3_PMOS": {"Vth0": 0.02}}
+BSIM3_GMIN_LADDER = tuple(float(g) for g in np.logspace(-2.0, -12.0, 8))
+BSIM3_SEED = 0          # the Monte-Carlo draw's torch.Generator seed
+
+
+def bsim3_chain_netlist(stages: int = BSIM3_STAGES) -> Netlist:
+    """The inverter chain as a netlist, devices in the bench's order: VDD,
+    the 1.5 V bias, the VAC input on the bias, then per stage PMOS (D out,
+    G in, S and B at VDD), NMOS (S and B at ground) and the load cap.  Its
+    stage outputs are the last ``stages`` of ``Netlist.nodes``."""
+    nl = Netlist()
+    n_vdd, n_bias, n_in = (netops.create_node(nl) for _ in range(3))
+    gnd = nl.ground_node
+    for model, params, a, b in ((VDC, {"V": BSIM3_VDD}, n_vdd, gnd),
+                                (VDC, {"V": BSIM3_VDD / 2.0}, n_bias, gnd),
+                                (VAC, {"Vp": BSIM3_VP, "freq": BSIM3_FREQ},
+                                 n_in, n_bias)):
+        m = netops.add_model(nl, model, params)
+        netops.add_to_node(nl, m, 0, a)
+        netops.add_to_node(nl, m, 1, b)
+    gate = n_in
+    for _ in range(stages):
+        n_out = netops.create_node(nl)
+        for model, params, rail in ((BSIM3V32_PMOS, BSIM3_PMOS_P, n_vdd),
+                                    (BSIM3V32_NMOS, BSIM3_NMOS_P, gnd)):
+            m = netops.add_model(nl, model, dict(params))
+            for pin, node in enumerate((n_out, gate, rail, rail)):
+                netops.add_to_node(nl, m, pin, node)
+        cl = netops.add_model(nl, CAPACITOR, {"C": BSIM3_CLOAD})
+        netops.add_to_node(nl, cl, 0, n_out)
+        netops.add_to_node(nl, cl, 1, gnd)
+        gate = n_out
+    return nl
+
+
+def build_bsim3_ir(stages: int = BSIM3_STAGES):
+    """Lowered IR of the chain: stages + 3 nodes, 3 source branches."""
+    return lower_analog(bsim3_chain_netlist(stages))
+
+
+def bsim3_params(ir, batch: int, device="cuda"):
+    """``batch`` lanes of the chain's parameters with the bench's Vth0
+    jitter, drawn from ``torch.Generator().manual_seed(BSIM3_SEED)``."""
+    return batch_params(ir, batch, jitter=BSIM3_JITTER,
+                        generator=torch.Generator().manual_seed(BSIM3_SEED),
+                        device=device)
+
+
+def bsim3_seed(ir, device="cuda"):
+    """The chain's TROP bias point at the nominal parameters: the gmin
+    ladder ``BSIM3_GMIN_LADDER`` (1e-2 down to 1e-12 in eight rungs),
+    each rung the per-lane dense f64 Newton with a 1024-iteration budget,
+    warm-started from the previous rung.  Returns (x (1, n), states with a
+    lane dimension of 1); raises naming the rung that does not
+    converge."""
+    env = default_env()
+    p1 = batch_params(ir, 1, device=device)
+    x, st = batch_x(ir, 1, device), batch_state(ir, 1, device)
+    for k, g in enumerate(BSIM3_GMIN_LADDER):
+        ctx = StampCtx(mode="trop", t=0.0, dt=0.0, env={**env, "g_min": g})
+        x, st, ok = analog.newton_solve(ir, p1, x, st, ctx, max_iter=1024)
+        if not bool(ok.all()):
+            raise RuntimeError(f"BSIM3 chain TROP: rung {k} (g_min = {g:.3e})"
+                               " did not converge")
+    return x, st
+
+
+def bsim3_run(ir, params, start, steps: int, max_iter: int = 256):
+    """The chain's fixed-step transient of ``steps`` x ``BSIM3_DT`` for the
+    lanes of ``params``, every lane warm-started from ``start`` = (x (1, n),
+    states) of `bsim3_seed`.  Returns (xs (steps, B, n), ok (B,))."""
+    B = next(iter(params.values())).shape[0]
+    x1, st1 = start
+    dev = next(iter(params.values())).device
+    x_b = x1.to(dev).expand(B, -1).clone()
+    st_b = {k: {v: a.to(dev).expand((B,) + a.shape[1:]).clone()
+                for v, a in d.items()} for k, d in st1.items()}
+    _x, _st, ok, xs = analog.transient_batched(
+        ir, params, x_b, st_b, default_env(), 0.0, BSIM3_DT, steps,
+        solver="frozen", keep_trace=True, max_iter=max_iter)
+    return xs, ok
+
+
+def bsim3_transient(batch: int = 256, steps: int = 100,
+                    stages: int = BSIM3_STAGES, device="cuda",
+                    max_iter: int = 256, start=None):
+    """``bench_bsim3.py``'s accelerator pass: the chain's Monte-Carlo
+    transient, ``batch`` lanes (`bsim3_params`) through the
+    frozen-Newton solver with ``max_iter`` iterations a step, from the
+    TROP seed ``start`` (run here when None).  Returns xs (steps, batch,
+    n); raises naming the lanes that do not converge."""
+    ir = build_bsim3_ir(stages)
+    if start is None:
+        start = bsim3_seed(ir, device)
+    xs, ok = bsim3_run(ir, bsim3_params(ir, batch, device), start,
+                       steps, max_iter)
+    if not bool(ok.all()):
+        bad = torch.nonzero(~ok).flatten().tolist()
+        raise RuntimeError(f"BSIM3 chain transient: lanes {bad} of {batch} "
+                           "did not converge")
+    return xs
 
 
 # ---------------------------------------------------------------------------

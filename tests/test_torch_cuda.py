@@ -1,8 +1,9 @@
 """CUDA tests of the PyTorch port: the hand-written kernels against their
 plain torch versions, the small frozen transient (both refactors) on the
 card against the CPU path, RV32 through Circuit.digital_run on the
-card, and the analog Circuit driver's analyses on the card against the
-CPU.  Marked ``cuda``; each skips on a host without a CUDA
+card, the analog Circuit driver's analyses on the card against the
+CPU, and BSIM3 (its hooks, the chain's rescue ladder, noise and
+sensitivity) on the card against the CPU.  Marked ``cuda``; each skips on a host without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs
 on a machine that has only torch:
 
@@ -33,6 +34,7 @@ from phy_engine_tpu_torch.engine import circuit as tcircuit
 
 from torch_circuits import (build, build_port, diode_load, divider,
                             unported_routes_raise)
+import bsim3_cases
 
 
 @pytest.fixture
@@ -517,4 +519,115 @@ def test_circuit_defaults_to_the_card(cuda):
 
 @pytest.mark.cuda
 def test_circuit_unported_routes_raise_on_the_card(cuda):
-    assert unported_routes_raise(cuda) == 10
+    assert unported_routes_raise(cuda) == 7
+
+
+# ---------------------------------------------------------------------------
+# BSIM3, noise and sensitivity on the card
+# ---------------------------------------------------------------------------
+
+def _bsim3_hooks(key, wave, device):
+    """Every hook of a BSIM3 family on ``bsim3_cases``' inputs."""
+    from phy_engine_tpu_torch.models import MODEL_REGISTRY, StampCtx
+    P, v, st, w = bsim3_cases._inputs(key, wave, seed=0)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    m, ts, wt = MODEL_REGISTRY[key], {k: t(a) for k, a in st.items()}, \
+        t(np.repeat(w[:, None], bsim3_cases.NI, axis=1))
+    ctx = StampCtx(mode="tr", t=bsim3_cases.T, dt=bsim3_cases.DT,
+                   env=bsim3_cases.ENV)
+    a, z, _ = m.stamp(t(P), t(v), None, ts, ctx)
+    step = m.step_update(t(P), t(v), None, ts, bsim3_cases.DT, bsim3_cases.T)
+    out = {"A": a, "z": z, "noise": m.noise(t(P), t(v), None, ts,
+                                            bsim3_cases.ENV, wt / 6.283),
+           "corr": m.noise_corr(t(P), t(v), None, ts, bsim3_cases.ENV,
+                                wt / 6.283, wt)}
+    out.update(zip(("ac_re", "ac_im"), m.ac_stamp(t(P), ts, wt)[:2]))
+    out.update({f"step {k}": step[k] for k in ("cg0", "cg5", "ch1")})
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,wave", [("BSIM3_NMOS", "capmod_xpart"),
+                                      ("BSIM3_PMOS", "nqs"),
+                                      ("BSIM3_NMOS_RC", "terminal_rc"),
+                                      ("BSIM3_PMOS_RC", "junctions")])
+def test_bsim3_hooks_card_match_cpu(cuda, key, wave):
+    """A BSIM3 family's stamp, AC stamp, step update and noise hooks on
+    the card against the CPU: 1e-10 relative to each array's largest
+    |entry| (the card's exp/log may differ in the last ulps)."""
+    g, h = _bsim3_hooks(key, wave, cuda), _bsim3_hooks(key, wave, "cpu")
+    for name, ref in h.items():
+        assert np.isfinite(g[name]).all(), name
+        err = np.abs(g[name] - ref).max() / (np.abs(ref).max() or 1.0)
+        assert err <= 1e-10, (name, err)
+
+
+@pytest.mark.cuda
+def test_bsim3_chain_rescue_ladder_on_the_card(cuda):
+    """The card twin of test_torch_bsim3_chain.py's ladder test: the
+    5-stage chain, B = 4, 15 steps at max_iter = 40 (the port's own
+    draw): the rescue ladder runs on both devices and converges every lane
+    it takes; traces agree to 1e-6 of max|trace|."""
+    ir = workloads.build_bsim3_ir(5)
+    runs = {}
+    for where in (cuda, "cpu"):
+        rescues = []
+        orig = analog.newton_solve_batched
+
+        def counted(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            rescues.append(int((~out[2]).sum()))
+            return out
+
+        start = workloads.bsim3_seed(ir, where)
+        params = workloads.bsim3_params(ir, 4, where)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(analog, "newton_solve_batched", counted)
+            xs, ok = workloads.bsim3_run(ir, params, start, 15, max_iter=40)
+        assert len(rescues) > 0 and all(r == 0 for r in rescues), rescues
+        assert bool(ok.all())
+        runs[str(where)] = xs.cpu().numpy()
+    ref = runs["cpu"]
+    card = runs[str(cuda)]
+    assert np.abs(card - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_bsim3_noise_and_sens_card_match_cpu(cuda):
+    """Circuit.noise on the BSIM3 stages and Circuit.sens / sens_ac on the
+    BSIM3 common-source stage, card against CPU: 1e-6 relative to the
+    largest |value| (per family for the gradients)."""
+    from torch_circuits import TIGHT, bsim3_cs_stage, bsim3_stages
+    res = {}
+    for where in (cuda, "cpu"):
+        b = build_port(bsim3_stages(), where, env=TIGHT)
+        b.c.ac = tcircuit.ACSettings(sweep=tcircuit.ACSweepType.LOG,
+                                     omega_start=6.283e1,
+                                     omega_stop=6.283e10, points=9)
+        nz = b.c.noise(b.nodes["out"], src=b.devs["vg"])
+        s = build_port(bsim3_cs_stage(), where, env=TIGHT)
+        s.c.ac = tcircuit.ACSettings(sweep=tcircuit.ACSweepType.LOG,
+                                     omega_start=6.283e3,
+                                     omega_stop=6.283e10, points=5)
+        dc = s.c.sens(s.nodes["d"])
+        _f, mag, ac = s.c.sens_ac(s.nodes["d"])
+        res[str(where)] = (nz, dc, mag, ac)
+    (gn, gd, gm, ga), (hn, hd, hm, ha) = res[str(cuda)], res["cpu"]
+
+    def close(a, b, what):
+        err = np.abs(np.asarray(a) - np.asarray(b)).max() / \
+            (np.abs(np.asarray(b)).max() or 1.0)
+        assert err <= 1e-6, (what, err)
+
+    close(gn.onoise_psd, hn.onoise_psd, "onoise")
+    close(gn.gain2, hn.gain2, "gain2")
+    for k, v in hn.contribs.items():
+        close(gn.contribs[k], v, f"noise {k}")
+    close(gm, hm, "sens_ac |V|")
+    for k, v in hd.grads.items():
+        close(gd.grads[k], v, f"sens {k}")
+        close(ga.grads[k], ha.grads[k], f"sens_ac {k}")

@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
         "assert 'phy_engine_tpu_torch.verilog.synth' in mods, mods\n"
         "assert 'phy_engine_tpu_torch.ops.lu_block' in mods, mods\n"
         "for m in ('engine.circuit', 'models.sources', 'models.controller',\n"
-        "          'parallel.batch', 'ops.linsolve'):\n"
+        "          'parallel.batch', 'ops.linsolve', 'engine.noise',\n"
+        "          'engine.sens', 'models.bsim3', 'models.dual'):\n"
         "    assert 'phy_engine_tpu_torch.' + m in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'phy_engine_tpu', 'triton'))\n"

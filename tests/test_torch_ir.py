@@ -1,7 +1,8 @@
 """Port parity: the stamp IR of phy_engine_tpu_torch equals the JAX
 package's, array for array, on the diode-ladder workload and on a
-netlist with every analog family but BSIM3; every family's metadata
-equals the JAX package's."""
+netlist with every analog family (the BSIM3 chain in
+test_torch_bsim3_chain.py); every family's metadata, noise hooks
+included, equals the JAX package's."""
 
 import numpy as np
 import pytest
@@ -64,11 +65,14 @@ def test_model_metadata_identical(key):
     brs = [7, 9, 13][:m.nbranches]
     assert m.pattern(pins, brs) == r.pattern(pins, brs)
     assert m.rhs_pattern(pins, brs) == r.rhs_pattern(pins, brs)
-    for hook in ("step_update", "check_conv", "ac_stamp"):
+    for hook in ("step_update", "check_conv", "ac_stamp", "noise",
+                 "noise_corr"):
         assert (getattr(m, hook) is None) == (getattr(r, hook) is None)
+    assert (m.noise_pairs, m.noise_corr_pairs) == (r.noise_pairs,
+                                                   r.noise_corr_pairs)
 
 
-# every analog family but BSIM3, several instances each, sharing nets
+# every analog family, several instances each, sharing nets
 ZOO = [("v", "VDC", {"V": 2.0}, ("a", "0")),
        ("vac", "VAC", {"Vp": 1.0}, ("b", "a")),
        ("r", "RESISTANCE", {}, ("b", "c")),
@@ -98,6 +102,11 @@ ZOO = [("v", "VDC", {"V": 2.0}, ("a", "0")),
        ("mn", "NMOSFET", {}, ("t", "s", "0")),
        ("mp", "PMOSFET", {}, ("t", "s", "a")),
        ("fbr", "FULL_BRIDGE_RECTIFIER", {}, ("t", "a", "u", "0")),
+       ("b3n", "BSIM3V32_NMOS", {}, ("u", "t", "0", "0")),
+       ("b3p", "BSIM3V32_PMOS", {"W": 2e-6}, ("u", "t", "a", "a")),
+       ("b3nr", "BSIM3V32_NMOS_RC", {"rd": 10.0}, ("v", "u", "0", "0")),
+       ("b3pr", "BSIM3V32_PMOS_RC", {}, ("v", "u", "a", "a")),
+       ("b3n2", "BSIM3V32_NMOS", {"Vth0": 0.5}, ("v", "t", "0", "0")),
        ("r3", "RESISTANCE", {"r": 1e4}, ("u", "t"))]
 
 

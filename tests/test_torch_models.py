@@ -2,7 +2,8 @@
 convergence vetos of every analog family but BSIM3 (linear, waveform
 sources, switch and relay, PN, BJT, MOSFET, full-bridge rectifier)
 against the JAX package's per-instance kernels (vmapped over lanes and
-instances), and their metadata.
+instances), and their metadata; that every analog family, BSIM3's
+included, is ported (BSIM3's kernels are held in test_torch_bsim3*.py).
 
 Tolerance: 1e-12 relative per element (float64; the two libraries'
 exp/log/sin may differ in the last ulps), against the larger magnitude
@@ -27,7 +28,8 @@ torch.set_num_threads(1)
 
 B, NI = 3, 40
 ENV = {"g_min": 0.0, "r_open": 1e12}
-ANALOG = sorted(k for k, m in MODEL_REGISTRY.items() if m.stamp is not None)
+ANALOG = sorted(k for k, m in MODEL_REGISTRY.items()
+                if m.stamp is not None and not k.startswith("BSIM3"))
 STEPPED = [k for k in ANALOG if MODEL_REGISTRY[k].step_update is not None]
 VETOED = [k for k in ANALOG if MODEL_REGISTRY[k].check_conv is not None]
 
@@ -270,7 +272,11 @@ def test_check_conv_matches_jax(key):
 
 
 def test_every_non_bsim3_analog_family_is_ported():
-    jax_analog = {k for k, m in JAX_REGISTRY.items()
-                  if m.stamp is not None and not k.startswith("BSIM3")}
-    assert set(ANALOG) == jax_analog
-    assert all(MODEL_REGISTRY[k].ac_stamp is not None for k in ANALOG)
+    """Every analog family of the JAX package, BSIM3's four included, is
+    registered in the port with an AC stamp."""
+    ported = {k for k, m in MODEL_REGISTRY.items() if m.stamp is not None}
+    jax_analog = {k for k, m in JAX_REGISTRY.items() if m.stamp is not None}
+    assert ported == jax_analog
+    assert {"BSIM3_NMOS", "BSIM3_PMOS", "BSIM3_NMOS_RC",
+            "BSIM3_PMOS_RC"} <= ported
+    assert all(MODEL_REGISTRY[k].ac_stamp is not None for k in ported)

@@ -51,6 +51,48 @@ def diode_load(v=5.0, r=1e3, **pn):
             ("d", "PN_JUNCTION", dict(pn), ("d", "0"))]
 
 
+# BSIM3 parameter sets of bench_bsim3.py and the series resistances of an
+# _RC device (all real: a terminal floored to 1 uOhm is a 1e6 S entry)
+B3_NMOS = {"Kp": 2e-4, "Vth0": 0.7, "W": 10e-6, "L": 1e-6}
+B3_PMOS = {"Kp": 1e-4, "Vth0": 0.7, "W": 20e-6, "L": 1e-6}
+B3_RC = {"rd": 500.0, "rs": 20.0, "rg": 100.0, "rb": 50.0}
+# Newton to machine precision: the default 1e-3 relative step tolerance
+# lets two implementations stop one iteration apart on a BSIM3 bias point
+TIGHT = {"V_eps_max": 1e-12, "V_epsr_max": 1e-9}
+
+
+def bsim3_stages():
+    """Two common-source stages, a BSIM3 NMOS with flicker and a PMOS_RC,
+    each gate through 50 kOhm from its bias, summed into net "out" by
+    resistors; "vg" biases the NMOS gate."""
+    spec = [("vdd", "VDC", {"V": 3.0}, ("vdd", "0")),
+            ("vg", "VDC", {"V": 1.2}, ("gn", "0")),
+            ("vgp", "VDC", {"V": 1.8}, ("gp", "0"))]
+    for k, (fam, params, rail, bias) in enumerate((
+            ("BSIM3V32_NMOS", {**B3_NMOS, "kf": 1e-24}, "0", "gn"),
+            ("BSIM3V32_PMOS_RC", {**B3_PMOS, **B3_RC}, "vdd", "gp"))):
+        spec += [(f"m{k}", fam, params, (f"d{k}", f"g{k}", rail, rail)),
+                 (f"rg{k}", "RESISTANCE", {"r": 50e3}, (bias, f"g{k}")),
+                 (f"rl{k}", "RESISTANCE", {"r": 4.7e3},
+                  (f"d{k}", "vdd" if rail == "0" else "0")),
+                 (f"rs{k}", "RESISTANCE", {"r": 20e3}, (f"d{k}", "out"))]
+    return spec + [("ro", "RESISTANCE", {"r": 10e3}, ("out", "0"))]
+
+
+def bsim3_cs_stage():
+    """A common-source BSIM3 NMOS stage (capMod 1) on a resistive gate
+    bias chain, a 1 mV VAC on the gate, output net "d"."""
+    return [("vdd", "VDC", {"V": 3.0}, ("vdd", "0")),
+            ("r1", "RESISTANCE", {"r": 100e3}, ("vdd", "gb")),
+            ("r2", "RESISTANCE", {"r": 68e3}, ("gb", "0")),
+            ("vsig", "VAC", {"Vp": 1e-3}, ("g", "gb")),
+            ("rl", "RESISTANCE", {"r": 10e3}, ("vdd", "d")),
+            ("cl", "CAPACITOR", {"C": 2e-14}, ("d", "0")),
+            ("m", "BSIM3V32_NMOS", {"W": 10e-6, "L": 1e-6, "Vth0": 0.7,
+                                    "Kp": 120e-6, "capmod": 1.0},
+             ("d", "g", "0", "0"))]
+
+
 def _unported(b):
     from phy_engine_tpu_torch.models import INPUT
     c, nl, dev = b.c, b.c.nl, b.c.device
@@ -58,9 +100,6 @@ def _unported(b):
     yield "14", lambda: c.dc_sweep(b.devs["v"], "V", [1.0], mesh=object())
     yield "14", lambda: c.temp_sweep([1.0], mesh=object())
     yield "14", lambda: c.monte_carlo({}, 2, mesh=object())
-    yield "9", lambda: c.noise(b.nodes["mid"])
-    yield "9", lambda: c.sens(b.nodes["mid"])
-    yield "9", lambda: c.sens_ac(b.nodes["mid"])
     yield "13", tpe.Circuit(nl, solver="sparse", device=dev).analyze
     yield "13", tpe.Circuit(nl, sparse_threshold=2, device=dev).analyze
 

@@ -144,6 +144,38 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               wall and lu_solve_gauss calls.  Phase 2
               holds and times the GJ pair at (256, 128) for it.
 
+13. levels  — the levelled digital tick (digital/engine.py LevelTick, torch
+              ops, no hand kernel): every case of tests/torch_digital_cases
+              .CASES (tests/test_torch_levels.py: each family of
+              tests/test_digital.py, RANDOM4, the latch of an incomplete
+              always @*) on the card and on the CPU, planes and node codes
+              bit-identical; then the RV32 core (-O1) from power-up through
+              24 ticks of the levelled tick (workloads.rv32_levels), every
+              plane of every tick bit-identical to the turbo kernel's full
+              history of the same schedule (the turbo kernel is the
+              oracle here, its launches counted).  Prints ms a tick and
+              device operations a tick (torch.profiler over one tick).
+14. mixed   — the 8-bit SAR ADC (workloads.sar_adc, tests/test_adc.py's
+              design) at tests/test_adc.py's voltages and rails on the card
+              and on the CPU: equal codes (a comparator tie, where the
+              trial DAC voltage equals the input, may differ and is held by
+              the 1-LSB rule and printed), DAC voltages within 1e-6; the
+              16-bit SAR (LSB 5 V / 65536) through 64 conversions at
+              voltages drawn from numpy's default_rng(14) over (-0.1, 5.1)
+              V, each code within 1 LSB of ideal and equal to a CPU run
+              of the same voltages in a process of its own; prints
+              conversions/s and the wall split between analyze() and
+              digital_clk().  The Tsu/Th RC gate cases (tests/
+              test_unsteady.py) through TR and the VERILOG_MODULE cases
+              (tests/test_verilog_module.py), card against CPU.
+15. flash   — the flash engine (digital/flash.py, torch ops): RV32,
+              B = 128 x 404 ticks from power-up, watching phase 8's
+              signals, bit-identical to the turbo kernel's watched history,
+              every result 4264; the latch-feedback design (the cyclic
+              class), B = 128 x 16 ticks of random per-lane stimulus,
+              bit-identical to the batched levelled tick.  Prints each
+              wall and gate-evals/s.
+
 Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements (the GJ pair also at phase 12's shape, "...@256x128", with
 phase 12's launches), and, last, {"ok": true, "device": {...}}.
@@ -154,12 +186,16 @@ import dataclasses
 import json
 import re
 import subprocess
+import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+
+import phy_engine_tpu_torch as tpe  # noqa: E402
 from phy_engine_tpu_torch import (ACSweepType, AnalyzeType, Circuit,
                                   Environment, workloads)
 from phy_engine_tpu_torch.digital import turbo, turbo_cases
@@ -1181,6 +1217,240 @@ def phase12_bsim3(dev, smi, results, steps=100, lanes=256, n_check=10):
     return launches
 
 
+def device_ops(fn):
+    """(device operations, device ms) of one call of ``fn``: the kernels
+    and copies that torch.profiler traces on the card (0 and 0.0 when the
+    trace holds no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0)
+        if t:
+            n += ev.count
+            us += t
+    return n, us / 1e3
+
+
+def cases_card_vs_cpu(phase, dev, names, what):
+    """Each case of tests/torch_digital_cases on the card and on the CPU:
+    planes and node codes bit-identical, voltages to its VTOL."""
+    import torch_digital_cases as dc
+    t0 = time.perf_counter()
+    for name in names:
+        card = dc.run_case(tpe, name, lambda: Circuit(device=dev))
+        host = dc.run_case(tpe, name, lambda: Circuit(device="cpu"))
+        try:
+            dc.assert_same(card, host)
+        except AssertionError as e:
+            raise RuntimeError(f"chip_smoke failed: {what} case {name}: card "
+                               f"vs CPU: {e}") from None
+    say(phase, f"{what}: {len(names)} cases ({', '.join(names)}) on the "
+        f"card and on the CPU: planes and node codes bit-identical, node "
+        f"voltages within {dc.VTOL:g}; {time.perf_counter() - t0:.1f} s")
+    return dc
+
+
+def phase13_levels(dev, smi, rv32, cycles=10):
+    """The levelled tick (see the module docstring, phase 13)."""
+    import torch_digital_cases as dc
+    cases_card_vs_cpu(13, dev, list(dc.CASES), "tests/test_torch_levels.py")
+    eng = rv32.circuit.digital_engine()
+    t0 = time.perf_counter()
+    eng.reset_state()
+    _ = eng.tick_fn
+    build_s = time.perf_counter() - t0
+    reset, body = workloads.rv32_schedules(rv32, cycles)
+    _e, fs, FV, FU = rv32.circuit._compile_schedule(reset + body)
+    eng.run_levels(fs, FV[None, :2], FU[None, :2])            # warm-up
+    turbo.run_turbo.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (fs, FV, FU), (hv, hu) = workloads.rv32_levels(rv32, cycles)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    T = len(FV)
+    check(turbo.run_turbo.launches == 0, "the levelled RV32 run launched the "
+          "turbo kernel")
+    # the oracle: the turbo kernel's full history of the same schedule
+    eng.reset_state()
+    plan = eng.plan(fs)
+    tv, tu = turbo.run_turbo(plan, eng._state0(plan, 1),
+                             turbo.as_int32(FV)[None].to(dev),
+                             turbo.as_int32(FU)[None].to(dev))
+    n_turbo = turbo.run_turbo.launches
+    check(n_turbo > 0, "phase 13's oracle never launched the turbo kernel")
+    v, u = plan.unpack_hist(tv[0], tu[0])
+    lv = hv.cpu().numpy().view(np.uint32)
+    lu = hu.cpu().numpy().view(np.uint32)
+    check(np.array_equal(lv, v[:, :plan.S]) and np.array_equal(lu, u[:, :plan.S]),
+          "levelled RV32 history != the turbo kernel's")
+    eng.reset_state()
+    ops, dev_ms = device_ops(lambda: eng.run_levels(fs, FV[None, :1],
+                                                    FU[None, :1]))
+    pre, full = eng.tick_fn.levels_count()
+    say(13, f"RV32 -O1 ({rv32.gates} gates + FFs) through the levelled tick, "
+        f"{T} ticks from power-up: every plane of every tick bit-identical to "
+        f"the turbo kernel's history (turbo launches {n_turbo}); "
+        f"{pre} + {full} levels a tick, tick built in {build_s:.2f} s on the "
+        f"host")
+    say(13, f"levelled tick: wall {sec * 1e3:.1f} ms for {T} ticks "
+        f"({sec * 1e3 / T:.2f} ms a tick, {rv32.gates * T / sec:.4e} "
+        f"gate-evals/s) on {smi}; {ops} device operations a tick, "
+        f"{dev_ms:.3f} ms of device time a tick (torch.profiler over the "
+        f"first tick)")
+
+
+def sar_conversions(volts, where):
+    """The 16-bit SAR on ``where`` through one conversion per voltage:
+    (wall s, {"analyze": s, "digital_clk": s}, codes, lu_solve_gauss
+    calls)."""
+    if str(where) == "cpu":
+        torch.set_num_threads(1)        # n = 50: one thread is fastest
+    adc = workloads.sar_adc(16, where)
+    spent = {"analyze": 0.0, "digital_clk": 0.0}
+    c = adc.circuit
+    for name in spent:
+        def timed(f=getattr(c, name), name=name):
+            t0 = time.perf_counter()
+            out = f()
+            spent[name] += time.perf_counter() - t0
+            return out
+        setattr(c, name, timed)
+    with Counted(linsolve, "lu_solve_gauss") as gauss:
+        t0 = time.perf_counter()
+        codes = [workloads.sar_convert(adc, float(v))[0] for v in volts]
+        if str(where) != "cpu":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, spent, codes, gauss.calls
+
+
+def phase14_mixed(dev, smi, n16=64, seed=14):
+    """Mixed signal (see the module docstring, phase 14)."""
+    lsb8 = workloads.SAR_VREF / 256
+    card, host = workloads.sar_adc(8, dev), workloads.sar_adc(8, "cpu")
+    ties = []
+    for v_in in (0.7, 1.23, 2.5, 3.9, 4.97, -0.5, 5.5):
+        (kc, kv), (hc, hv) = (workloads.sar_convert(card, v_in),
+                              workloads.sar_convert(host, v_in))
+        ideal = min(max(v_in, 0.0), workloads.SAR_VREF - lsb8) / lsb8
+        check(abs(kc - ideal) <= 1.0 + 1e-9 and abs(hc - ideal) <= 1.0 + 1e-9,
+              f"SAR8 at {v_in} V: codes {kc} / {hc}, ideal {ideal:.3f}")
+        if kc != hc:
+            # a comparator tie: the trial DAC voltage equals v_in
+            check(float(v_in / lsb8).is_integer(), f"SAR8 at {v_in} V: card "
+                  f"code {kc} != CPU code {hc}")
+            ties.append((v_in, kc, hc))
+            continue
+        check(abs(kv - hv) <= 1e-6 * max(abs(hv), lsb8),
+              f"SAR8 at {v_in} V: DAC {kv} vs {hv}")
+    say(14, "SAR8 at tests/test_adc.py's 5 voltages and 2 rails: card codes "
+        "equal the CPU's, DAC voltages within 1e-6, every code within 1 LSB"
+        + ("" if not ties else "; comparator ties held by the 1-LSB rule: "
+           + ", ".join(f"{v} V card {a} CPU {b}" for v, a, b in ties)))
+    volts = np.random.default_rng(seed).uniform(-0.1, 5.1, n16)
+    lsb = workloads.SAR_VREF / 2 ** 16
+    # the CPU run in a process of its own, beside the card's
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        cpu_run = pool.submit(sar_conversions, volts, "cpu")
+        sec, spent, codes, gauss = sar_conversions(volts, dev)
+        cpu_sec, _spent, cpu_codes, _gauss = cpu_run.result()
+    check(codes == cpu_codes, "SAR16: card codes != CPU codes at "
+          + ", ".join(f"{v:.6f} V" for v, a, b in zip(volts, codes, cpu_codes)
+                      if a != b))
+    ideal = np.clip(volts, 0.0, workloads.SAR_VREF - lsb) / lsb
+    err = np.abs(np.asarray(codes) - ideal).max()
+    check(err <= 1.0 + 1e-9, f"SAR16 code off ideal by {err:.3f} LSB")
+    say(14, f"SAR16 (LSB {lsb * 1e6:.2f} uV), {n16} conversions at seeded "
+        f"voltages in (-0.1, 5.1) V: codes equal the CPU run's, max "
+        f"|code - ideal| {err:.3f} LSB; card wall {sec:.2f} s "
+        f"({n16 / sec:.2f} conversions/s on {smi}): analyze() "
+        f"{spent['analyze']:.2f} s, digital_clk() {spent['digital_clk']:.2f} "
+        f"s, lu_solve_gauss calls {gauss}; CPU wall {cpu_sec:.2f} s (another "
+        f"process, at the same time)")
+    import torch_digital_cases as dc
+    cases_card_vs_cpu(14, dev, [n for n in dc.MIXED if n.startswith("unst")],
+                      "Tsu/Th RC gate through TR (tests/test_unsteady.py)")
+    cases_card_vs_cpu(14, dev, ["vmod_counter", "vmod_drives_analog"],
+                      "VERILOG_MODULE (tests/test_verilog_module.py)")
+    rec = dc.run_case(tpe, "vmod_counter", lambda: Circuit(device=dev))
+    lsbs = [x[1][0] for x in rec.items if x[0] == "codes"][2::2]
+    check(lsbs == [1, 0, 1, 0], f"VERILOG_MODULE counter LSBs {lsbs}")
+
+
+def phase15_flash(dev, smi, rv32, B=128, ticks=404):
+    """The flash engine (see the module docstring, phase 15)."""
+    from phy_engine_tpu_torch.digital import flash
+    eng = rv32.circuit.digital_engine()
+    eng.reset_state()
+    reset, body = workloads.rv32_schedules(rv32, (ticks - 4) // 2)
+    _e, fs, FV, FU = rv32.circuit._compile_schedule(reset + body)
+    watch = rv32_watch(rv32)
+    t0 = time.perf_counter()
+    plan = flash.FlashPlan(eng.ir, fs)
+    build_s = time.perf_counter() - t0
+    FVb = np.repeat(FV[None], B, axis=0)
+    FUb = np.repeat(FU[None], B, axis=0)
+    turbo.run_turbo.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fv, fu = flash.run_batched(plan, eng.sv, eng.su, eng.seq_state, FVb, FUb,
+                               watch, device=dev)
+    sec = time.perf_counter() - t0
+    check(turbo.run_turbo.launches == 0, "flash launched the turbo kernel")
+    tplan = eng.plan(fs)
+    hv, hu = turbo.run_turbo(tplan, eng._state0(tplan, B),
+                             turbo.as_int32(FVb).to(dev),
+                             turbo.as_int32(FUb).to(dev), watch=watch)
+    tv, tu = tplan.unpack_hist(hv, hu)
+    check(np.array_equal(fv, tv) and np.array_equal(fu, tu),
+          "flash RV32 watched history != the turbo kernel's")
+    last = fv[:, -1] & ~fu[:, -1] & 1
+    res = (last[:, :32].astype(np.int64) << np.arange(32)).sum(axis=1)
+    check(bool((res == rv32.expect).all()) and bool((last[:, 32] == 1).all()),
+          f"flash RV32: {int((res != rv32.expect).sum())} of {B} results "
+          f"not {rv32.expect}")
+    say(15, f"flash RV32 B={B} x {ticks} ticks from power-up, watching phase "
+        f"8's {len(watch)} signals: bit-identical to the turbo kernel's "
+        f"watched history, all {B} results {rv32.expect}; plan "
+        f"{plan.K} slots, {len(plan.cone_passes)} + {len(plan.full_passes)} "
+        f"passes a tick, built in {build_s:.2f} s; wall {sec:.2f} s "
+        f"({sec / ticks * 1e3:.1f} ms a tick), {rv32.gates * B * ticks / sec:.4e} "
+        f"gate-evals/s on {smi}")
+    import torch_digital_cases as dc
+    rec = dc.Rec(lambda: Circuit(device=dev))
+    c, ins, pn = dc._synth(tpe, rec, dc.LATCH_SRC, "lat", ("en", "d", "s"))
+    names = {n: ins[n][0] for n in ("en", "d", "s")}
+    comp = [c._compile_schedule([{names[n]: v for n, v in e.items()} for e in
+                                 dc.random_codes(np.random.default_rng(s),
+                                                 list(names), 16, lanes=True)])
+            for s in range(B)]
+    leng, lfs = comp[0][0], comp[0][1]
+    LFV = np.stack([x[2] for x in comp])
+    LFU = np.stack([x[3] for x in comp])
+    check(bool(leng.ir.cyclic) and turbo.eligible(leng.ir, allow_cyclic=True),
+          "the latch design is not in flash's cyclic class")
+    lwatch = [leng.ir.node_sig[id(n)] for n in pn["q"] + pn["y"]]
+    t0 = time.perf_counter()
+    av, au = leng.run_ticks_batched(lfs, LFV, LFU, watch=lwatch)     # flash
+    f_sec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bv, bu, _last = leng.run_levels(lfs, LFV, LFU, None, lwatch)
+    bv, bu = bv.cpu().numpy().view(np.uint32), bu.cpu().numpy().view(np.uint32)
+    l_sec = time.perf_counter() - t0
+    check(np.array_equal(av, bv) and np.array_equal(au, bu),
+          "flash != the levelled tick on the latch-feedback design")
+    say(15, f"latch feedback (incomplete always @*, the cyclic class), "
+        f"B={B} x 16 ticks of random per-lane stimulus: flash bit-identical "
+        f"to the batched levelled tick; flash {f_sec * 1e3:.1f} ms, levelled "
+        f"tick {l_sec * 1e3:.1f} ms")
+
+
 def main():
     # phase 0: device
     if not torch.cuda.is_available():
@@ -1323,6 +1593,14 @@ def main():
     for name, count in launches12.items():
         launches[name + AT128] = count
     say(12, f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    # phases 13-15: the levelled tick, mixed signal, the flash engine
+    for phase, fn, args in ((13, phase13_levels, (dev, smi, rv32)),
+                            (14, phase14_mixed, (dev, smi)),
+                            (15, phase15_flash, (dev, smi, rv32))):
+        t0 = time.perf_counter()
+        fn(*args)
+        say(phase, f"phase {phase} took {time.perf_counter() - t0:.1f} s")
 
     print(smi)
     meta = {k: dict(source=v["source"], replaces=v["replaces"])

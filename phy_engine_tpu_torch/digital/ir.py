@@ -1,6 +1,5 @@
 """Digital netlist -> cone IR lowering (the port's copy of
-``phy_engine_tpu/digital/ir.py``; ``bind_analog_indices`` waits for the
-mixed-signal slice).
+``phy_engine_tpu/digital/ir.py``, ``bind_analog_indices`` included).
 
 The reference's digital engine is an event-driven worklist over node
 pointers (circuits/circuit.h:307-337 + per-gate ``update_digital_clk``).
@@ -315,3 +314,32 @@ def lower_digital(nl: Netlist) -> Optional[DigitalIR]:
     ir._drv_nodes = drv_nodes            # type: ignore[attr-defined]
     return ir
 
+
+def bind_analog_indices(ir: DigitalIR):
+    """Resolve sampled/driven Node objects to MNA node indices.  Must run
+    after engine.lower.lower_analog has assigned node_index."""
+    ir.samp_node = np.array(
+        [max(n.node_index, -1) for n in ir._samp_nodes], np.int32) \
+        if ir._samp_nodes else np.zeros(0, np.int32)
+    ir.drv_node = np.array(
+        [max(n.node_index, -1) for n in ir._drv_nodes], np.int32) \
+        if ir._drv_nodes else np.zeros(0, np.int32)
+    # analog pin nodes for analog-reading sequential devices
+    for seg in ir.seq:
+        if seg.op in ("SCHMITT", "CMP"):
+            an = np.full((len(seg.instances),
+                          max(1, seg.inputs.shape[1])), -1, np.int32)
+            for i, inst in enumerate(seg.instances):
+                for j, pi in enumerate(inst.mdef.din_pins):
+                    node = inst.pins[pi].node
+                    if node is not None and not node.is_ground:
+                        an[i, j] = node.node_index
+            seg.anodes = an
+        # pack per-instance float params used inside the kernel
+        if seg.op == "SCHMITT":
+            seg.fparams = np.array(
+                [[float(m.params["inverted"]), float(m.params["Vth_low"]),
+                  float(m.params["Vth_high"])] for m in seg.instances])
+        elif seg.op == "RANDOM4":
+            seg.fparams = np.array(
+                [[float(m.params.get("seed", 1.0))] for m in seg.instances])

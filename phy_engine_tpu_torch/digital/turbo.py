@@ -108,10 +108,21 @@ _OP_PAD = 1 << 7           # a padding record: no gate
 _FF_REC = ("d", "c", "r", "q", "lc", "rst_en")
 
 
-def eligible(ir: DigitalIR) -> bool:
-    """True when the turbo tick computes this design (see module doc)."""
-    if ir.vmods or ir.tick_delays is not None or ir.cyclic:
+def eligible(ir: DigitalIR, allow_cyclic: bool = False) -> bool:
+    """True when the turbo tick computes this design (see module doc).
+    ``allow_cyclic``: also accept gate-level feedback (``ir.cyclic`` of
+    plain gates), which the flash engine settles by a bounded fixpoint;
+    the turbo tick itself is strictly feed-forward."""
+    if ir.vmods or ir.tick_delays is not None:
         return False
+    if ir.cyclic:
+        if not allow_cyclic:
+            return False
+        for seg in ir.cyclic:
+            # each cyclic segment must be a plain gate row for the
+            # fixpoint's Jacobi evaluation
+            if seg.op not in _GEN2_ENC:
+                return False
     if ir.samp_sig.size:
         return False
     for seg in ir.seq:

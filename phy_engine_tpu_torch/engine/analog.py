@@ -154,38 +154,59 @@ def _sparse_pattern(ir: AnalogIR):
     return _cached(ir, "sparse_pattern", build)
 
 
-def _full_pattern_np(ir: AnalogIR):
-    """`_sparse_pattern` plus the inactive drive-slot extension
-    (B quadrant to the ground dummy, C quadrant, D identity)."""
+def _drive_nodes(ir: AnalogIR, drives):
+    """The drive slots' node column: the bound nodes of ``drives`` (ground
+    -> the dummy n), or every slot at the dummy n without drives."""
+    n = ir.n_unknowns
+    if drives is None:
+        return np.full(ir.n_drive_slots, n, np.int32)
+    node = np.asarray(drives["node"], np.int32)
+    return np.where(node < 0, n, node).astype(np.int32)
+
+
+def _full_pattern_np(ir: AnalogIR, node=None):
+    """`_sparse_pattern` plus the drive-slot extension: B quadrant
+    (``node``, slot), C quadrant (slot, ``node``), D identity, with
+    ``node`` the slots' nodes from `_drive_nodes` (None: the dummy).
+
+    The JAX package moves an inactive slot's B / C entries to the dummy
+    row per call; here a bound slot keeps its node and an inactive one
+    stamps 0 there.  The sums are the same: no other entry writes a
+    drive slot's row or column."""
+    node = _drive_nodes(ir, None) if node is None else node
+
     def build():
         rows, cols = _sparse_pattern(ir)
         if ir.n_drive_slots:
             k = ir.n_drive_slots
-            n = ir.n_unknowns
             base = ir.n_nodes + ir.n_branches
             drows = np.arange(base, base + k, dtype=np.int32)
-            node = np.full(k, n, np.int32)
             rows = np.concatenate([rows, node, drows, drows])
             cols = np.concatenate([cols, drows, node, drows])
         return rows.astype(np.int64), cols.astype(np.int64)
-    return _cached(ir, "full_pattern", build)
+    return _cached(ir, ("full_pattern", node.tobytes()), build)
 
 
-def _frozen_pattern(ir: AnalogIR, device):
-    """COO index pattern (incl. the drive-slot extension) as unbatched
-    device tensors, shared by every lane."""
+def _frozen_pattern(ir: AnalogIR, device, node=None):
+    """COO index pattern (incl. the drive-slot extension at ``node``) as
+    unbatched device tensors, shared by every lane."""
+    node = _drive_nodes(ir, None) if node is None else node
+
     def build():
         return tuple(torch.as_tensor(a, device=device)
-                     for a in _full_pattern_np(ir))
-    return _cached(ir, ("pattern", device), build)
+                     for a in _full_pattern_np(ir, node))
+    return _cached(ir, ("pattern", device, node.tobytes()), build)
 
 
-def _plan(ir: AnalogIR, name: str, width: int = 0) -> ScatterPlan:
-    """The scatter plans of the shared pattern:
+def _plan(ir: AnalogIR, name: str, width: int = 0,
+          node=None) -> ScatterPlan:
+    """The scatter plans of the shared pattern (drive slots at ``node``):
     'rows_sum' (B, n) KCL sums, 'rows_max' / 'cols_max' (B, n+1)
     equilibration maxima, 'dense' (B, width*width) the dense target."""
+    node = _drive_nodes(ir, None) if node is None else node
+
     def build():
-        rows, cols = _full_pattern_np(ir)
+        rows, cols = _full_pattern_np(ir, node)
         n = ir.n_unknowns
         if name == "rows_sum":
             return ScatterPlan(rows, n)
@@ -197,7 +218,7 @@ def _plan(ir: AnalogIR, name: str, width: int = 0) -> ScatterPlan:
             keys = np.where((rows < n) & (cols < n), rows * width + cols, -1)
             return ScatterPlan(keys, width * width)
         raise ValueError(name)
-    return _cached(ir, ("plan", name, width), build)
+    return _cached(ir, ("plan", name, width, node.tobytes()), build)
 
 
 def _z_plan(ir: AnalogIR, fams) -> ScatterPlan:
@@ -245,10 +266,15 @@ def _merge(take, old, new):
 # sparse (COO) assembly
 # ---------------------------------------------------------------------------
 
-def assemble_sparse(ir: AnalogIR, params, x, states, ctx: StampCtx):
+def assemble_sparse(ir: AnalogIR, params, x, states, ctx: StampCtx,
+                    drives=None):
     """COO values + RHS for the batch.
 
-    Returns (rows (nnz,), cols (nnz,), vals (B, nnz), Z (B, n),
+    ``drives``: optional dict with 'node' (k,) int numpy, 'active' (k,)
+    and 'v' (k,) float tensors — the digital->analog branch constraints
+    regenerated per tick (circuit.h:1015-1022): an active slot is an
+    ideal V source from its node, an inactive one forces its current to
+    0.  Returns (rows (nnz,), cols (nnz,), vals (B, nnz), Z (B, n),
     new_states); rows/cols are the shared unbatched pattern."""
     B = x.shape[0]
     x_ext = _ext(x)
@@ -262,20 +288,30 @@ def assemble_sparse(ir: AnalogIR, params, x, states, ctx: StampCtx):
             z_parts.append(z_vals.reshape(B, -1))
         new_states[fam.mdef.id_name] = st2
     val_parts.append(x.new_full((B, ir.n_nodes), ctx.env.get("g_min", 0.0)))
-    val_parts.extend(_drive_tail(ir, x))
+    val_parts.extend(_drive_tail(ir, x, drives))
     vals = torch.cat(val_parts, dim=1)
     Z = _z_plan(ir, ir.families).sum(_cat(z_parts, x))
-    rows, cols = _frozen_pattern(ir, x.device)
+    if drives is not None and ir.n_drive_slots:
+        # E value of each slot; nothing else writes the drive rows (the
+        # last k unknowns)
+        base = ir.n_nodes + ir.n_branches
+        e = (drives["active"] * drives["v"]).to(Z.dtype)
+        Z = torch.cat([Z[:, :base], Z[:, base:] + e], dim=1)
+    rows, cols = _frozen_pattern(ir, x.device, _drive_nodes(ir, drives))
     return rows, cols, vals, Z, new_states
 
 
-def _drive_tail(ir: AnalogIR, x):
-    """Values of the inactive drive-slot extension (active = 0)."""
+def _drive_tail(ir: AnalogIR, x, drives=None):
+    """Values of the drive-slot extension, (active, active, 1 - active):
+    B quadrant, C quadrant, D identity (all inactive without drives)."""
     if not ir.n_drive_slots:
         return []
     k = ir.n_drive_slots
-    z = x.new_zeros((x.shape[0], k))
-    return [z, z, z + 1.0]
+    if drives is None:
+        a = x.new_zeros((x.shape[0], k))
+    else:
+        a = drives["active"].to(x.dtype).expand(x.shape[0], k)
+    return [a, a, 1.0 - a]
 
 
 def _cat(parts, like):
@@ -284,14 +320,16 @@ def _cat(parts, like):
     return like.new_zeros((like.shape[0], 0))
 
 
-def assemble(ir: AnalogIR, params, x, states, ctx):
+def assemble(ir: AnalogIR, params, x, states, ctx, drives=None):
     """Dense (B, n, n) system, (B, n) RHS and the new device states: the
     sparse assembly scattered in entry order — the same sums, in the same
     order, as the JAX package's dense ``assemble`` (families, then gmin,
-    then drive slots)."""
+    then drive slots).  ``drives``: see `assemble_sparse`."""
     n = ir.n_unknowns
-    _r, _c, vals, Z, st2 = assemble_sparse(ir, params, x, states, ctx)
-    A = _plan(ir, "dense", n).sum(vals).reshape(x.shape[0], n, n)
+    _r, _c, vals, Z, st2 = assemble_sparse(ir, params, x, states, ctx,
+                                           drives)
+    A = _plan(ir, "dense", n, _drive_nodes(ir, drives)).sum(vals).reshape(
+        x.shape[0], n, n)
     return A, Z, st2
 
 
@@ -340,14 +378,15 @@ def _converged(x_old, x_new, n_nodes: int, env):
 # ---------------------------------------------------------------------------
 
 def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
-                 max_iter: int = MAX_NEWTON_ITER):
+                 max_iter: int = MAX_NEWTON_ITER, drives=None):
     """Newton outer loop (circuit.h:892-985) per lane: dense assembly and
     a dense solve (``dense_solve``: the f64 Gauss-Jordan for float64).
     Linear circuits take one solve, as the reference's
     ``if(!has_nonlinear_device()) return solve_once()``.  (B, ...) in;
-    returns (x (B, n), states, ok (B,))."""
+    returns (x (B, n), states, ok (B,)).  ``drives``: the digital
+    drive slots of every lane (`assemble_sparse`)."""
     def solve_once(x, st):
-        A, Z, st2 = assemble(ir, params, x, st, ctx)
+        A, Z, st2 = assemble(ir, params, x, st, ctx, drives)
         x_new = dense_solve(A, Z)
         return x_new, st2, torch.isfinite(x_new).all(dim=1)
 
@@ -371,7 +410,7 @@ def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
 
 
 def transient(ir: AnalogIR, params, x0, states0, env, t0, dt,
-              num_steps: int):
+              num_steps: int, drives=None):
     """Run ``num_steps`` fixed TR steps per lane from (x0, states0) at time
     t0 (host floats; step i solves at t0 + (i+1)·dt).  A failed step keeps
     the lane's previous solution (the reference rolls back tr_duration,
@@ -386,7 +425,8 @@ def transient(ir: AnalogIR, params, x0, states0, env, t0, dt,
         t = t0 + (i + 1.0) * dt
         st = step_update_all(ir, params, x, st, dt, t)
         x_new, st, ok = newton_solve(ir, params, x, st,
-                                     StampCtx(mode="tr", t=t, dt=dt, env=env))
+                                     StampCtx(mode="tr", t=t, dt=dt, env=env),
+                                     drives=drives)
         x = torch.where(ok[:, None], x_new, x)
         ok_all = ok_all & ok
         xs.append(x)
@@ -394,7 +434,7 @@ def transient(ir: AnalogIR, params, x0, states0, env, t0, dt,
 
 
 def transient_adaptive(ir: AnalogIR, params, x0, states0, env, t0, dt0,
-                       t_stop, max_attempts: int, dt_min):
+                       t_stop, max_attempts: int, dt_min, drives=None):
     """Adaptive transient of one circuit (B = 1): step-halving on Newton
     failure, growth back toward dt0 on success (the reference declares
     ``adapt_step`` in its TR settings but never wires it).  The JAX
@@ -419,7 +459,7 @@ def transient_adaptive(ir: AnalogIR, params, x0, states0, env, t0, dt0,
         st2 = step_update_all(ir, params, x, st, dt_eff, t_new)
         x_new, st3, ok_t = newton_solve(
             ir, params, x, st2, StampCtx(mode="tr", t=t_new, dt=dt_eff,
-                                         env=env))
+                                         env=env), drives=drives)
         ok = bool(ok_t[0])
         if ok:
             x, st, t = x_new, st3, t_new

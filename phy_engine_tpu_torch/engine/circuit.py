@@ -6,9 +6,13 @@ API parity with ``phy_engine::circult`` (circuits/circuit.h:60-177):
 with results sampled back onto the netlist objects (node voltages, branch
 currents, device runtime state), plus the JAX package's extensions:
 gmin stepping, adaptive TR, ``.DC`` / temperature sweeps, Monte-Carlo,
-``.FOUR``, ``.TF``, ``.PZ``, ``.NOISE`` and ``.SENS``.  Digital-only
-netlists run through ``digital_run`` / ``digital_run_batch`` on the turbo
-kernel.
+``.FOUR``, ``.TF``, ``.PZ``, ``.NOISE`` and ``.SENS``.  Digital devices
+run through ``digital_clk`` (one tick of the levelled engine, alternating
+with ``analyze()`` on a mixed-signal netlist: analog nets are sampled at
+the tick and digital outputs on analog nets drive them as ideal sources in
+every later analysis) and ``digital_run`` / ``digital_run_batch`` (many
+ticks: the turbo kernel where it applies, else the levelled or the flash
+engine).
 
 ``analyze()`` lowers the netlist once per structural version; parameter
 edits (``set_attribute``) repack the parameter matrices at the next
@@ -17,9 +21,8 @@ analysis without relowering.  The persistent transient clock
 lives on ``Circuit.device`` ("cuda" unless the caller passes "cpu").
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item: analog plus digital devices in one netlist (item 12), the
-sparse route for ``solver="sparse"`` or n >= ``sparse_threshold`` (item
-13), and the mesh routes (item 14).
+queue 1 item: the sparse route for ``solver="sparse"`` or n >=
+``sparse_threshold`` (item 13), and the mesh routes (item 14).
 """
 
 from __future__ import annotations
@@ -130,7 +133,8 @@ class Circuit:
         self._ir: Optional[AnalogIR] = None
         self._x = None               # last solution vector (n,)
         self._states = None          # {family: {var: (n_inst,)}}
-        self._digital = None         # DigitalEngine of a digital netlist
+        self._digital = None         # DigitalEngine of the digital devices
+        self._drives = None          # last digital->analog drive arrays
 
     # -- settings (reference: set_analyze_type / get_analyze_setting) ----
     def set_analyze_type(self, at: AnalyzeType):
@@ -147,19 +151,19 @@ class Circuit:
         if self._ir is not None and not force \
                 and self._ir.version == self.nl.version:
             return self._ir
-        live = self.nl.live_models()
-        digital = [m for m in live
-                   if m.mdef.device_class == DeviceClass.DIGITAL]
-        if digital and len(digital) < len(live):
-            raise _todo("a netlist with both analog and digital devices "
-                        "(mixed signal)", "12")
         self._digital = None
-        if digital:
+        n_drive = 0
+        if any(m.mdef.device_class == DeviceClass.DIGITAL
+               for m in self.nl.live_models()):
             from ..digital.engine import DigitalEngine
             self._digital = DigitalEngine(self.nl, self.device)
-        ir = lower_analog(self.nl)
+            n_drive = self._digital.n_drive_slots
+        ir = lower_analog(self.nl, max_drive_slots=n_drive)
         ir.version = self.nl.version
         self._ir = ir
+        if self._digital is not None:
+            self._digital.bind(ir.n_nodes)
+        self._drives = None
         x = np.zeros(ir.n_unknowns)
         warm = False
         for i, node in enumerate(ir.node_list):
@@ -186,7 +190,7 @@ class Circuit:
         return ir
 
     def digital_engine(self):
-        """The digital engine of a digital-only netlist."""
+        """The digital engine of the netlist's digital devices."""
         self.prepare()
         if self._digital is None:
             raise ValueError("no digital content")
@@ -226,7 +230,8 @@ class Circuit:
         ctx = StampCtx(mode=mode, t=float(self.tr_duration), dt=0.0, env=env)
         kw = {} if max_iter is None else {"max_iter": max_iter}
         x2, st2, ok = analog.newton_solve(self._ir, _one(params), x[None],
-                                          _one(st), ctx, **kw)
+                                          _one(st), ctx, drives=self._drives,
+                                          **kw)
         return x2[0], _lane0(st2), bool(ok[0])
 
     # -- analysis ----------------------------------------------------------
@@ -290,7 +295,7 @@ class Circuit:
         ctx = StampCtx(mode="op" if mode in ("op", "dc") else mode,
                        t=float(self.tr_duration), dt=0.0, env=env)
         A, Z, _ = analog.assemble(self._ir, _one(params), x[None], _one(st),
-                                  ctx)
+                                  ctx, self._drives)
         A, Z = A[0], Z[0]
         resid = (A @ x - Z).abs()
         row_scale = A.abs() @ x.abs() + Z.abs()
@@ -308,7 +313,8 @@ class Circuit:
         num_steps = max(1, int(round(self.tr.t_stop / dt)))
         x, st, ok, xs = analog.transient(
             self._ir, _one(params), self._x[None], _one(self._states),
-            self._env_scalars(), self.tr_duration, dt, num_steps)
+            self._env_scalars(), self.tr_duration, dt, num_steps,
+            drives=self._drives)
         ok = bool(ok[0])
         if ok:
             self._x, self._states = x[0], _lane0(st)
@@ -316,6 +322,7 @@ class Circuit:
             self.tr_times = self.tr_duration + dt * np.arange(1, num_steps + 1)
             self.tr_duration += num_steps * dt
             self._writeback(self._x.cpu().numpy())
+            self._observe_tr_substeps()
         return ok
 
     def _analyze_tr_adaptive(self) -> bool:
@@ -329,13 +336,15 @@ class Circuit:
         x, st, ok, ts, xs, acc = analog.transient_adaptive(
             self._ir, _one(params), self._x[None], _one(self._states),
             self._env_scalars(), self.tr_duration, dt0,
-            self.tr_duration + self.tr.t_stop, max_attempts, dt_min)
+            self.tr_duration + self.tr.t_stop, max_attempts, dt_min,
+            drives=self._drives)
         if ok:
             self._x, self._states = x[0], _lane0(st)
             self.tr_history = xs[0].cpu().numpy()[acc]
             self.tr_times = ts[acc]
             self.tr_duration += self.tr.t_stop
             self._writeback(self._x.cpu().numpy())
+            self._observe_tr_substeps()
         return ok
 
     def _omega_grid(self) -> np.ndarray:
@@ -398,7 +407,8 @@ class Circuit:
             return None
         params = self._params()
         grads = sens_op(self._ir, params, self._x, self._states,
-                        self._env_scalars(), self._out_index(out))
+                        self._env_scalars(), self._out_index(out),
+                        self._drives)
         return SensResult(self._ir, grads, params)
 
     def sens_ac(self, out):
@@ -414,7 +424,7 @@ class Circuit:
         grid = self._omega_grid()
         mag, grads = sens_ac(self._ir, params, self._x, self._states,
                              self._env_scalars(), self._out_index(out),
-                             self._tensor(grid))
+                             self._tensor(grid), self._drives)
         return (grid / (2.0 * np.pi), mag.cpu().numpy(),
                 SensResult(self._ir, grads, params))
 
@@ -464,11 +474,15 @@ class Circuit:
         voltage) over a grid, solving the operating point at every grid
         value in one batched program (a lane per value).  ``out``:
         optional Node or branch device whose (nv,) trace the result's
-        ``out`` holds.  Does not disturb the circuit's stored solution.
-        Returns a :class:`SweepResult`."""
+        ``out`` holds.  Mixed-signal circuits are not swept (digital
+        drives are per-tick state).  Does not disturb the circuit's stored
+        solution.  Returns a :class:`SweepResult`."""
         if mesh is not None:
             raise _todo("dc_sweep(mesh=...)", "14")
         ir = self.prepare()
+        if ir.n_drive_slots:
+            raise ValueError("dc_sweep does not support mixed-signal "
+                             "circuits (use digital_clk interleave)")
         key, i, j = self._family_col(inst, pname)
         vals = np.asarray(values, np.float64)
         nv = len(vals)
@@ -488,6 +502,9 @@ class Circuit:
         if mesh is not None:
             raise _todo("temp_sweep(mesh=...)", "14")
         ir = self.prepare()
+        if ir.n_drive_slots:
+            raise ValueError("temp_sweep does not support mixed-signal "
+                             "circuits")
         temps = np.asarray(temps, np.float64)
         nv = len(temps)
         tj = self._tensor(temps)
@@ -516,9 +533,12 @@ class Circuit:
         (n, steps, N)."""
         if mesh is not None:
             raise _todo("monte_carlo(mesh=...)", "14")
+        ir = self.prepare()
+        if ir.n_drive_slots:
+            raise ValueError("monte_carlo does not support "
+                             "mixed-signal circuits")
         if analysis not in ("op", "tr"):
             raise ValueError("analysis must be 'op' or 'tr'")
-        ir = self.prepare()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         params_b = jitter_params(ir, self._params(), n, jitter, generator,
@@ -644,6 +664,47 @@ class Circuit:
         return poles, finite_eigs(M0, M1)
 
     # -- digital -----------------------------------------------------------
+    def digital_clk(self) -> bool:
+        """One digital tick (circuit.h:298-354): sample the analog nets at
+        the present solution, run the levelled tick, and keep its drive
+        requests for the following analyses."""
+        if self._digital is None:
+            self.prepare()
+        if self._digital is None:
+            return True
+        analog_v = self._node_voltages()
+        # advance the Tsu/Th unsteady-state automata at tick time (TR
+        # substeps between ticks feed them too — _analyze_tr)
+        self._digital.observe_analog(analog_v, self.tr_duration)
+        self._drives = self._digital.tick(analog_v)
+        return True
+
+    def _observe_tr_substeps(self):
+        """Feed every accepted TR substep's solution into the digital
+        Tsu/Th automata so setup/hold X windows follow the analog
+        trajectory between ticks (and.h:161-363)."""
+        eng = self._digital
+        if eng is None or not eng.has_unsteady():
+            return
+        if self.tr_history is None or self.tr_times is None:
+            return
+        n = self._ir.n_nodes
+        for t, row in zip(np.asarray(self.tr_times),
+                          np.asarray(self.tr_history)):
+            eng.observe_analog(row[:n], float(t))
+
+    def digital_inputs(self) -> Dict[str, object]:
+        """Named runtime-settable INPUT devices (synth constants are
+        excluded)."""
+        return {m.name: m for m in self.nl.live_models()
+                if m.mdef.digital_op == "INPUT"
+                and not m.params.get("synth_const") and m.name}
+
+    def digital_outputs(self) -> Dict[str, object]:
+        """Named OUTPUT/display devices."""
+        return {m.name: m for m in self.nl.live_models()
+                if m.mdef.digital_op in ("OUTPUT", "OUTPUT8") and m.name}
+
     def digital_run(self, schedule) -> "DigitalTrace":
         """Run ``len(schedule)`` digital ticks in one device program.
 
@@ -652,9 +713,12 @@ class Circuit:
         hold their current attribute value.  A value is either a 4-state
         code (0/1/2/3, broadcast to all 32 stimulus lanes) or a tuple
         ``(v_word, u_word)`` of 32-bit planes giving each lane its own
-        4-state value.  Returns a :class:`DigitalTrace`."""
+        4-state value.  Analog-sampled nets read the present node
+        voltages; VERILOG_MODULE devices need digital_clk().  Returns a
+        :class:`DigitalTrace`."""
         eng, fs, FV, FU = self._compile_schedule(schedule)
-        return DigitalTrace(eng, eng.run_ticks(fs, FV, FU))
+        return DigitalTrace(eng, eng.run_ticks(fs, FV, FU,
+                                               self._node_voltages()))
 
     def _compile_schedule(self, schedule):
         eng = self.digital_engine()
@@ -758,6 +822,7 @@ class Circuit:
         self._x = None
         self._states = None
         self._digital = None
+        self._drives = None
         for n in self.nl.all_nodes():
             n.voltage = 0.0 + 0.0j
 

@@ -56,20 +56,24 @@ def _grads(out, leaves):
             for k, gk in zip(keys, g)}
 
 
-def sens_op(ir: AnalogIR, params, x_op, states, env, out_idx: int):
+def sens_op(ir: AnalogIR, params, x_op, states, env, out_idx: int,
+            drives=None):
     """d x[out_idx] / d params at the converged OP of one circuit
-    (``params`` {family: (n_inst, n_param)}, ``x_op`` (n,)).  Returns
-    {family: (n_inst, n_param)} absolute sensitivities."""
+    (``params`` {family: (n_inst, n_param)}, ``x_op`` (n,), ``drives``
+    the digital drive slots held fixed).  Returns {family: (n_inst,
+    n_param)} absolute sensitivities."""
     ctx = StampCtx(mode="op", t=0.0, dt=0.0, env=env)
     leaves = _leaves(params)
     with torch.enable_grad():
-        A, Z, _ = assemble(ir, leaves, x_op[None], _lanes(states, 1), ctx)
+        A, Z, _ = assemble(ir, leaves, x_op[None], _lanes(states, 1), ctx,
+                           drives)
         h = dense_solve(A, Z)[0, out_idx]
         g = _grads(h, leaves)
     return {k: v[0] for k, v in g.items()}
 
 
-def sens_ac(ir: AnalogIR, params, x_op, states, env, out_idx: int, omegas):
+def sens_ac(ir: AnalogIR, params, x_op, states, env, out_idx: int, omegas,
+            drives=None):
     """d |V_out(jω)| / d params over the grid ``omegas`` (W,).
 
     Returns ``(mag (W,), {family: (W, n_inst, n_param)})``.  The chain
@@ -83,11 +87,12 @@ def sens_ac(ir: AnalogIR, params, x_op, states, env, out_idx: int, omegas):
     st = _lanes(states, W)
     with torch.enable_grad():
         if ir.nonlinear:
-            A, Z, _ = assemble(ir, leaves, x_op.expand(W, n), st, ctx)
+            A, Z, _ = assemble(ir, leaves, x_op.expand(W, n), st, ctx,
+                               drives)
             xop = dense_solve(A, Z)
             # re-assembly at the (p-dependent) bias reproduces the save_op
             # linearizations as a function of p
-            _, _, st = assemble(ir, leaves, xop, st, ctx)
+            _, _, st = assemble(ir, leaves, xop, st, ctx, drives)
         Ar, Ai, Zr, Zi = assemble_ac(ir, leaves, st, omegas)
         y = dense_solve(split_real(Ar, Ai), torch.cat([Zr, Zi], dim=1))
         re, im = y[:, out_idx], y[:, n + out_idx]

@@ -1,7 +1,7 @@
 """Device families of the port: every analog family of the JAX package
 (linear, waveform sources, switch and relay, PN, BJT, MOSFET, full-bridge
-rectifier, BSIM3v3.2 and its terminal-parasitic variant), and the
-digital gates' metadata."""
+rectifier, BSIM3v3.2 and its terminal-parasitic variant), the digital
+gates' metadata, the comparator and the VERILOG_MODULE device."""
 
 from .base import (MODEL_REGISTRY, DeviceClass, ModelDef, StampCtx,  # noqa: F401
                    UpdatePhase, register)
@@ -11,7 +11,7 @@ from .linear import (RESISTANCE, CAPACITOR, INDUCTOR, VDC, VAC, IDC,  # noqa: F4
 from .sources import SAWTOOTH, SQUARE, PULSE, TRIANGLE  # noqa: F401
 from .nonlinear import (PN_JUNCTION, BJT_NPN, BJT_PNP, NMOSFET,  # noqa: F401
                         PMOSFET, FULL_BRIDGE_RECTIFIER)
-from .controller import SWITCH, RELAY  # noqa: F401
+from .controller import SWITCH, RELAY, COMPARATOR  # noqa: F401
 from .bsim3 import (BSIM3V32_NMOS, BSIM3V32_PMOS, BSIM3V32_NMOS_RC,  # noqa: F401
                     BSIM3V32_PMOS_RC)
 from .digital_gates import (AND, OR, NOT, YES, XOR, XNOR, NAND, NOR, IMP,  # noqa: F401
@@ -22,3 +22,4 @@ from .digital_gates import (AND, OR, NOT, YES, XOR, XNOR, NAND, NOR, IMP,  # noq
                             HALF_ADDER, FULL_ADDER, HALF_SUBTRACTOR,
                             FULL_SUBTRACTOR, MUL2, COUNTER4,
                             RANDOM_GENERATOR4)
+from .verilog_module import VERILOG_MODULE, make_verilog_module  # noqa: F401

@@ -9,15 +9,15 @@ flips when the coil voltage crosses Von/Voff and is carried as device
 state through Newton iterations (it is classified nonlinear so DC
 iterates, relay.h:11).
 
-The comparator is a digital device sampling two analog nodes; it comes
-with the mixed-signal engine (ROADMAP.md queue 1 item 12).
+The comparator is a digital-output device handled by the digital engine
+(its sequential phase compares the raw voltages of two analog nodes).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .base import ModelDef, DeviceClass, register
+from .base import ModelDef, DeviceClass, UpdatePhase, register
 from .linear import no_rhs, row, zeros, _VSRC_VALS
 
 
@@ -87,4 +87,18 @@ RELAY = register(ModelDef(
     pattern=_relay_pattern, rhs_pattern=no_rhs,
     stamp=_relay_stamp, ac_stamp=_contact_ac, nonlinear=True,
     attrs=("Von", "Voff"),
+))
+
+
+# ---------------------------------------------------------------------------
+# comparator (comparator.h): o = H when v(A) >= v(B), else L.
+# Handled by the digital engine's special-op table.
+# ---------------------------------------------------------------------------
+
+COMPARATOR = register(ModelDef(
+    name="Comparator", id_name="CMP", device_class=DeviceClass.DIGITAL,
+    pins=("A", "B", "o"), defaults={"Ll": 0.0, "Hl": 5.0},
+    digital_op="CMP", update_phase=UpdatePhase.TABLE,
+    din_pins=(0, 1), dout_pins=(2,),
+    attrs=("Ll", "Hl"),
 ))

@@ -28,7 +28,15 @@ transient from that seed (Vth0 jitter 0.02 on both families).
 whose ``result`` bus ends at ``RV32_EXPECT``) to gates at ``-O1``, and
 ``rv32_run`` clocks it through ``Circuit.digital_run`` /
 ``digital_run_batch`` with ``bench_digital.py``'s schedule.
-``FP16_ADD_SRC`` is the combinational half-precision adder of the tests.
+``rv32_levels`` runs the same core through the levelled tick (the oracle
+the chip smoke holds against the turbo kernel).  ``FP16_ADD_SRC`` is the
+combinational half-precision adder of the tests.
+
+``sar_adc`` / ``sar_convert`` are the port's copy of tests/test_adc.py: a
+``bits``-bit SAR ADC, synthesized SAR logic driving an R-2R DAC through
+digital drive slots, a comparator closing the loop; ``analyze()`` and
+``digital_clk()`` alternate through each conversion.  8 bits is the
+tests' design, 16 the reference's test/0028.16b_adc.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import numpy as np
 import torch
 
 from .engine import analog
-from .engine.circuit import Circuit
+from .engine.circuit import AnalyzeType, Circuit
 from .engine.environment import Environment
 from .engine.lower import lower_analog
 from .models.digital_gates import INPUT
@@ -334,3 +342,150 @@ def rv32_run(batch: int = 1, cycles: int = 200, device="cuda",
     bits = (last[:, :32] == 1).astype(np.int64)
     res = (bits << np.arange(32, dtype=np.int64)).sum(axis=1)
     return res, codes[:, -1, 32]
+
+
+def rv32_levels(d: Rv32, cycles: int):
+    """The RV32 core from power-up through ``rv32_schedules(d, cycles)``
+    (reset, then ``cycles`` clocks) on the levelled tick, which
+    ``digital_run`` does not take for it (the design is turbo-eligible).
+    Returns (forced_sig, FV, FU) of that schedule and the history
+    (hv, hu) as int32 device tensors (T, n_signals); the final state is
+    committed."""
+    eng = d.circuit.digital_engine()
+    eng.reset_state()
+    reset, body = rv32_schedules(d, cycles)
+    _e, fs, FV, FU = d.circuit._compile_schedule(reset + body)
+    hv, hu, last = eng.run_levels(fs, FV[None], FU[None])
+    eng.commit(*last)
+    return (fs, FV, FU), (hv[0], hu[0])
+
+
+# ---------------------------------------------------------------------------
+# mixed signal: the SAR ADC (tests/test_adc.py, test/0028.16b_adc)
+# ---------------------------------------------------------------------------
+
+SAR_R = 10e3
+SAR_VREF = 5.0
+
+
+def sar_src(bits: int = 8) -> str:
+    """Verilog of a ``bits``-bit successive-approximation register:
+    ``bits`` = 8 is tests/test_adc.py's ``sar8``, text for text."""
+    n, w = bits, (bits - 1).bit_length() + 1
+    msb, half = f"{n}'h{1 << (n - 1):X}", f"{n}'h{1 << (n - 2):X}"
+    return f"""
+module sar{n}(input clk, input rst_n, input cmp,
+            output reg [{n - 1}:0] dac, output reg [{n - 1}:0] code,
+            output reg done);
+  reg [{w - 1}:0] step;
+  always @(posedge clk or negedge rst_n) begin
+    if (!rst_n) begin
+      dac <= {msb};
+      code <= {n}'h{0:0{n // 4}X};
+      step <= {w}'d0;
+      done <= 1'b0;
+    end else if (!done) begin
+      if (cmp) code <= code | ({msb} >> step);
+      if (step == {w}'d{n - 1}) begin
+        done <= 1'b1;
+        dac <= cmp ? dac : (dac & ~({msb} >> step));
+      end else begin
+        dac <= (cmp ? dac : (dac & ~({msb} >> step)))
+               | ({half} >> step);
+        step <= step + {w}'d1;
+      end
+    end
+  end
+endmodule
+"""
+
+
+class Sar(NamedTuple):
+    circuit: Circuit
+    clk: object                 # INPUT device on clk
+    rst: object                 # INPUT device on rst_n
+    vin: object                 # the VDC of the input voltage
+    ports: Dict[str, List]      # port -> nets, LSB first
+    n_dac: object               # the R-2R ladder's output net
+    bits: int
+
+
+def sar_adc(bits: int = 8, device="cuda") -> Sar:
+    """A ``bits``-bit SAR ADC (tests/test_adc.py's ``build_adc``, the
+    reference's test/0028.16b_adc at 16 bits): the synthesized SAR logic
+    at -O1 drives an R-2R DAC (R = 10 kOhm, LSB first, 2R terminator)
+    through digital drive slots, and a comparator of the input VDC
+    against the DAC output closes the loop."""
+    from .models.controller import COMPARATOR
+    from .verilog import build_design, compile_source, elaborate, find_module
+    from .verilog.synth import SynthOptions, synthesize_to_netlist
+    design = build_design(compile_source(sar_src(bits)))
+    topm = find_module(design, f"sar{bits}")
+    inst = elaborate(design, topm)
+    c = Circuit(device=device)
+    nl = c.nl
+    pn = {p: [netops.create_node(nl) for _ in range(inst.signals[p].width)]
+          for p in topm.ports}
+    clk = netops.add_model(nl, INPUT, {"boolean": 0.0})
+    rst = netops.add_model(nl, INPUT, {"boolean": 0.0})
+    netops.add_to_node(nl, clk, 0, pn["clk"][0])
+    netops.add_to_node(nl, rst, 0, pn["rst_n"][0])
+    # the analog side before synthesis, so the dac port nets are hybrid
+    vin = netops.add_model(nl, VDC, {"V": 0.0})
+    n_vin = netops.create_node(nl)
+    netops.add_to_node(nl, vin, 0, n_vin)
+    netops.add_to_node(nl, vin, 1, nl.ground_node)
+    ladder = [netops.create_node(nl) for _ in range(bits)]
+    rt = netops.add_model(nl, RESISTANCE, {"r": 2 * SAR_R})
+    netops.add_to_node(nl, rt, 0, ladder[0])
+    netops.add_to_node(nl, rt, 1, nl.ground_node)
+    for i in range(bits):
+        r2 = netops.add_model(nl, RESISTANCE, {"r": 2 * SAR_R})
+        netops.add_to_node(nl, r2, 0, pn["dac"][i])
+        netops.add_to_node(nl, r2, 1, ladder[i])
+        if i < bits - 1:
+            r1 = netops.add_model(nl, RESISTANCE, {"r": SAR_R})
+            netops.add_to_node(nl, r1, 0, ladder[i])
+            netops.add_to_node(nl, r1, 1, ladder[i + 1])
+    cmp_ = netops.add_model(nl, COMPARATOR)
+    netops.add_to_node(nl, cmp_, 0, n_vin)
+    netops.add_to_node(nl, cmp_, 1, ladder[-1])
+    netops.add_to_node(nl, cmp_, 2, pn["cmp"][0])
+    synthesize_to_netlist(nl, design, inst, pn, SynthOptions(opt_level=1))
+    c.set_analyze_type(AnalyzeType.OP)
+    return Sar(c, clk, rst, vin, pn, ladder[-1], bits)
+
+
+def sar_convert(adc: Sar, v_in: float):
+    """One conversion (tests/test_adc.py's ``convert``): a reset pulse,
+    then SAR clocks alternating ``digital_clk`` with ``analyze`` until
+    ``done``.  Returns (code, DAC output voltage); raises when the
+    conversion does not finish."""
+    c, clk, rst = adc.circuit, adc.clk, adc.rst
+    adc.vin.set_attribute("V", v_in)
+    rst.set_attribute("boolean", 0.0)
+    c.analyze()
+    c.digital_clk()
+    for lv in (1.0, 0.0):
+        clk.set_attribute("boolean", lv)
+        c.digital_clk()
+    rst.set_attribute("boolean", 1.0)
+    c.digital_clk()
+    c.analyze()
+    c.digital_clk()              # comparator sees the MSB trial
+    done = 0
+    for _cycle in range(adc.bits + 1):
+        clk.set_attribute("boolean", 1.0)
+        c.digital_clk()          # SAR clocks in the comparator decision
+        c.analyze()              # DAC settles with the new trial code
+        clk.set_attribute("boolean", 0.0)
+        c.digital_clk()          # comparator re-samples the settled DAC
+        c.analyze()
+        done = c.node_digital(adc.ports["done"][0])
+        if done == 1:
+            break
+    if done != 1:
+        raise RuntimeError(f"SAR conversion of {v_in} V never finished")
+    code = sum((c.node_digital(n) & 1) << i
+               for i, n in enumerate(adc.ports["code"]))
+    return code, c.node_voltage(adc.n_dac).real

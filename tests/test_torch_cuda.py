@@ -3,7 +3,10 @@ plain torch versions, the small frozen transient (both refactors) on the
 card against the CPU path, RV32 through Circuit.digital_run on the
 card, the analog Circuit driver's analyses on the card against the
 CPU, and BSIM3 (its hooks, the chain's rescue ladder, noise and
-sensitivity) on the card against the CPU.  Marked ``cuda``; each skips on a host without a CUDA
+sensitivity) on the card against the CPU, and the levelled digital tick,
+mixed signal (the SAR ADC, the Tsu/Th automata, VERILOG_MODULE) and the
+flash engine on the card against the CPU and the turbo kernel.  Marked
+``cuda``; each skips on a host without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs
 on a machine that has only torch:
 
@@ -35,6 +38,7 @@ from phy_engine_tpu_torch.engine import circuit as tcircuit
 from torch_circuits import (build, build_port, diode_load, divider,
                             unported_routes_raise)
 import bsim3_cases
+import torch_digital_cases as dc
 
 
 @pytest.fixture
@@ -519,7 +523,7 @@ def test_circuit_defaults_to_the_card(cuda):
 
 @pytest.mark.cuda
 def test_circuit_unported_routes_raise_on_the_card(cuda):
-    assert unported_routes_raise(cuda) == 7
+    assert unported_routes_raise(cuda) == 6
 
 
 # ---------------------------------------------------------------------------
@@ -631,3 +635,106 @@ def test_bsim3_noise_and_sens_card_match_cpu(cuda):
     for k, v in hd.grads.items():
         close(gd.grads[k], v, f"sens {k}")
         close(ga.grads[k], ha.grads[k], f"sens_ac {k}")
+
+
+# ---------------------------------------------------------------------------
+# the levelled tick, mixed signal and the flash engine on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(dc.CASES_ALL))
+def test_digital_case_card_matches_cpu(cuda, name):
+    """Every case of tests/test_torch_levels.py and tests/test_torch_mixed.py
+    (torch_digital_cases) on the card against the CPU: planes and codes
+    bit-identical, voltages to dc.VTOL."""
+    card = dc.run_case(tpe, name, lambda: tpe.Circuit(device=cuda))
+    host = dc.run_case(tpe, name, lambda: tpe.Circuit(device="cpu"))
+    dc.assert_same(card, host)
+
+
+@pytest.mark.cuda
+def test_levels_tick_rv32_matches_turbo_on_the_card(cuda):
+    """RV32 from power-up, 24 ticks through the levelled tick on the card,
+    against the turbo kernel's full history of the same schedule."""
+    d = workloads.build_rv32(device=cuda)
+    (fs, FV, FU), (hv, hu) = workloads.rv32_levels(d, 10)
+    assert hv.is_cuda and hv.shape[0] == 24
+    eng = d.circuit.digital_engine()
+    eng.reset_state()
+    plan = eng.plan(fs)
+    tv, tu = turbo.run_turbo(plan, eng._state0(plan, 1),
+                             turbo.as_int32(FV)[None].to(cuda),
+                             turbo.as_int32(FU)[None].to(cuda))
+    v, u = plan.unpack_hist(tv[0], tu[0])
+    np.testing.assert_array_equal(hv.cpu().numpy().view(np.uint32),
+                                  v[:, :plan.S])
+    np.testing.assert_array_equal(hu.cpu().numpy().view(np.uint32),
+                                  u[:, :plan.S])
+
+
+@pytest.mark.cuda
+def test_flash_matches_turbo_and_levels_on_the_card(cuda):
+    """fp16 (acyclic), three instances of random per-lane stimulus, a
+    watch list: flash on the card against the turbo kernel and against
+    flash on the CPU; the latch-feedback design (the cyclic class), B = 8:
+    flash against the batched levelled tick."""
+    from phy_engine_tpu_torch.digital import flash
+    c, ins, _pn, _r = workloads.synth_top(workloads.FP16_ADD_SRC, "fp16_add",
+                                          cuda, inputs=("a", "b"))
+    names = {f"{p}{i}": m for p in ("a", "b") for i, m in enumerate(ins[p])}
+    comp = [c._compile_schedule(
+        [{names[n]: v for n, v in e.items()} for e in
+         dc.random_codes(np.random.default_rng(s), list(names), 5,
+                         lanes=True)]) for s in (1, 2, 3)]
+    eng, fs = comp[0][0], comp[0][1]
+    FV = np.stack([x[2] for x in comp])
+    FU = np.stack([x[3] for x in comp])
+    watch = list(range(0, eng.ir.n_signals, 7))
+    plan = eng.flash_plan(fs)
+    card = flash.run_batched(plan, eng.sv, eng.su, eng.seq_state, FV, FU,
+                             watch, device=cuda)
+    host = flash.run_batched(plan, eng.sv, eng.su, eng.seq_state, FV, FU,
+                             watch, device="cpu")
+    tv, tu = eng.run_ticks_batched(fs, FV, FU, watch=watch)       # turbo
+    for a, b in zip(card, host):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(card[0], tv)
+    np.testing.assert_array_equal(card[1], tu)
+    rec = dc.Rec(lambda: tpe.Circuit(device=cuda))
+    c, ins, pn = dc._synth(tpe, rec, dc.LATCH_SRC, "lat", ("en", "d", "s"))
+    names = {n: ins[n][0] for n in ("en", "d", "s")}
+    comp = [c._compile_schedule(
+        [{names[n]: v for n, v in e.items()} for e in
+         dc.random_codes(np.random.default_rng(s), list(names), 12,
+                         lanes=True)]) for s in range(8)]
+    eng, fs = comp[0][0], comp[0][1]
+    FV = np.stack([x[2] for x in comp])
+    FU = np.stack([x[3] for x in comp])
+    watch = [eng.ir.node_sig[id(n)] for n in pn["q"] + pn["y"]]
+    fv, fu = eng.run_ticks_batched(fs, FV, FU, watch=watch)       # flash
+    hv, hu, _last = eng.run_levels(fs, FV, FU, None, watch)
+    assert hv.is_cuda
+    np.testing.assert_array_equal(fv, hv.cpu().numpy().view(np.uint32))
+    np.testing.assert_array_equal(fu, hu.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,volts", [(8, (0.7, 1.23, 3.9, 4.97, -0.5,
+                                             5.5)),
+                                        (16, (1.2345, 3.98765))])
+def test_sar_adc_card_matches_cpu(cuda, bits, volts):
+    """The SAR ADC on the card and on the CPU: equal codes, DAC voltages
+    within 1e-6, each code within 1 LSB of ideal (tests/test_adc.py's
+    voltages but 2.5 V, a comparator tie at 8 bits, which chip_smoke.py
+    holds by the 1-LSB rule)."""
+    card, host = workloads.sar_adc(bits, cuda), workloads.sar_adc(bits, "cpu")
+    assert card.circuit.prepare().n_drive_slots == bits
+    lsb = workloads.SAR_VREF / 2 ** bits
+    for v_in in volts:
+        (kc, kv), (hc, hv) = (workloads.sar_convert(card, v_in),
+                              workloads.sar_convert(host, v_in))
+        assert kc == hc, (v_in, kc, hc)
+        assert abs(kv - hv) <= 1e-6 * max(abs(hv), lsb)
+        ideal = min(max(v_in, 0.0), workloads.SAR_VREF - lsb) / lsb
+        assert abs(kc - ideal) <= 1.0 + 1e-9
+    assert card.circuit._x.is_cuda

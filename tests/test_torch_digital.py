@@ -18,9 +18,6 @@ from phy_engine_tpu.digital import turbo as jturbo
 
 from phy_engine_tpu_torch import workloads
 from phy_engine_tpu_torch.digital import turbo
-from phy_engine_tpu_torch.engine.circuit import Circuit
-from phy_engine_tpu_torch.models import D_LATCH, INPUT, OUTPUT, RESISTANCE
-from phy_engine_tpu_torch.netlist import operations as netops
 
 from test_torch_verilog import DESIGNS, built, jax_synth
 from test_turbo import _snake_schedule
@@ -273,24 +270,40 @@ def test_rv32_run_single_and_batched_agree():
     assert done1[0] in (0, 1)
 
 
-def test_ineligible_design_raises():
-    c = Circuit(device="cpu")
-    nl = c.nl
-    d, en, q = (netops.create_node(nl) for _ in range(3))
-    for node in (d, en):
-        m = netops.add_model(nl, INPUT, {"boolean": 0.0})
-        netops.add_to_node(nl, m, 0, node)
-    lat = netops.add_model(nl, D_LATCH)
-    for pin, node in enumerate((d, en, q)):
-        netops.add_to_node(nl, lat, pin, node)
-    out = netops.add_model(nl, OUTPUT)
-    netops.add_to_node(nl, out, 0, q)
-    with pytest.raises(ValueError, match="not eligible"):
-        c.prepare()
-    r = netops.add_model(nl, RESISTANCE, {"r": 1.0})
-    netops.add_to_node(nl, r, 0, q)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        c.prepare()
+def test_ineligible_design_raises(monkeypatch):
+    """A design the turbo tick cannot run (a D latch), its output on an
+    analog net (a resistor to ground): once refused, now the levelled
+    tick and the drive slots run it.  Planes, the OUTPUT's value and the
+    driven node's voltage after every tick and OP match the JAX
+    package's."""
+    import torch_circuit_cases as cases
+    monkeypatch.setenv("PE_TPU_DIGITAL", "levels")
+    spec = [("d", "INPUT", {"boolean": 0.0}, ("d",)),
+            ("en", "INPUT", {"boolean": 0.0}, ("en",)),
+            ("lat", "D_LATCH", {}, ("d", "en", "q")),
+            ("out", "OUTPUT", {}, ("q",)),
+            ("r", "RESISTANCE", {"r": 1.0}, ("q", "0"))]
+    j, t = cases.both(spec)
+    assert not turbo.eligible(t.c.digital_engine().ir)
+    assert t.c.prepare().n_drive_slots == 1
+    seen = set()
+    for dv, ev in ((1, 1), (0, 0), (0, 1), (1, 2), (1, 1), (0, 0)):
+        for b in (j, t):
+            b.devs["d"].set_attribute("boolean", float(dv))
+            b.devs["en"].set_attribute("boolean", float(ev))
+            b.c.digital_clk()
+            b.c.set_analyze_type(b.mod.AnalyzeType.OP)
+            assert b.c.analyze()
+        np.testing.assert_array_equal(t.c._digital.sv,
+                                      np.asarray(j.c._digital.sv))
+        np.testing.assert_array_equal(t.c._digital.su,
+                                      np.asarray(j.c._digital.su))
+        assert t.devs["out"].params["value"] == j.devs["out"].params["value"]
+        vq = t.c.node_voltage(t.nodes["q"]).real
+        assert vq == j.c.node_voltage(j.nodes["q"]).real
+        seen.add((t.devs["out"].params["value"], vq))
+    assert {v for v, _q in seen} == {0, 1}
+    assert {q for _v, q in seen} == {0.0, 5.0}
 
 
 def test_wrapper_checks_its_arguments():

@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
         "assert 'phy_engine_tpu_torch.ops.lu_block' in mods, mods\n"
         "for m in ('engine.circuit', 'models.sources', 'models.controller',\n"
         "          'parallel.batch', 'ops.linsolve', 'engine.noise',\n"
-        "          'engine.sens', 'models.bsim3', 'models.dual'):\n"
+        "          'engine.sens', 'models.bsim3', 'models.dual',\n"
+        "          'digital.engine', 'digital.flash', 'digital.ir',\n"
+        "          'models.verilog_module'):\n"
         "    assert 'phy_engine_tpu_torch.' + m in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'phy_engine_tpu', 'triton'))\n"

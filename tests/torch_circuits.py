@@ -94,7 +94,6 @@ def bsim3_cs_stage():
 
 
 def _unported(b):
-    from phy_engine_tpu_torch.models import INPUT
     c, nl, dev = b.c, b.c.nl, b.c.device
     yield "14", lambda: tpe.Circuit(mesh=object(), device=dev)
     yield "14", lambda: c.dc_sweep(b.devs["v"], "V", [1.0], mesh=object())
@@ -102,12 +101,6 @@ def _unported(b):
     yield "14", lambda: c.monte_carlo({}, 2, mesh=object())
     yield "13", tpe.Circuit(nl, solver="sparse", device=dev).analyze
     yield "13", tpe.Circuit(nl, sparse_threshold=2, device=dev).analyze
-
-    def mixed():
-        m = tpe.netops.add_model(nl, INPUT, {"boolean": 1.0})
-        tpe.netops.add_to_node(nl, m, 0, b.nodes["mid"])
-        c.analyze()
-    yield "12", mixed
 
 
 def unported_routes_raise(device) -> int:

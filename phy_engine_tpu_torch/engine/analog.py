@@ -1,6 +1,7 @@
 """Batched analog engine (port of ``phy_engine_tpu/engine/analog.py``):
-MNA assembly (sparse, dense f64 and AC), the per-lane dense Newton and
-transients of the ``Circuit`` driver, the AC sweep, and the explicit-batch
+MNA assembly (sparse, dense f64 and AC), the per-lane Newton (dense, or
+sparse through ``ops/sparse.py``'s BiCGStab) and transients of the
+``Circuit`` driver, the AC sweep, and the explicit-batch
 masked Newton solvers with the frozen-preconditioner transient of the
 Monte-Carlo main path.
 
@@ -32,8 +33,10 @@ import torch
 from .. import F32, F64
 from ..models.base import StampCtx
 from ..ops.gj import NB, gj_inverse32, gj_solve32
+from ..ops.gj import pow2_recip_floor as _pow2_recip_floor
 from ..ops.linsolve import dense_solve, lu_solve_gauss
 from ..ops.lu_block import lu_block_inverse32
+from ..ops.sparse import COOLayout, bicgstab
 from .lower import AnalogIR
 
 MAX_NEWTON_ITER = 64      # circuit.h:898
@@ -377,18 +380,47 @@ def _converged(x_old, x_new, n_nodes: int, env):
 # where the solve succeeded.)
 # ---------------------------------------------------------------------------
 
+def coo_layout(ir: AnalogIR, drives=None) -> COOLayout:
+    """The sparse route's cached :class:`~..ops.sparse.COOLayout` of the
+    shared pattern (drive slots at their bound nodes)."""
+    node = _drive_nodes(ir, drives)
+
+    def build():
+        rows, cols = _full_pattern_np(ir, node)
+        return COOLayout(rows, cols, ir.n_unknowns)
+    return _cached(ir, ("coo_layout", node.tobytes()), build)
+
+
 def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
-                 max_iter: int = MAX_NEWTON_ITER, drives=None):
-    """Newton outer loop (circuit.h:892-985) per lane: dense assembly and
-    a dense solve (``dense_solve``: the f64 Gauss-Jordan for float64).
-    Linear circuits take one solve, as the reference's
-    ``if(!has_nonlinear_device()) return solve_once()``.  (B, ...) in;
-    returns (x (B, n), states, ok (B,)).  ``drives``: the digital
-    drive slots of every lane (`assemble_sparse`)."""
-    def solve_once(x, st):
-        A, Z, st2 = assemble(ir, params, x, st, ctx, drives)
-        x_new = dense_solve(A, Z)
-        return x_new, st2, torch.isfinite(x_new).all(dim=1)
+                 max_iter: int = MAX_NEWTON_ITER, drives=None,
+                 method: str = "dense"):
+    """Newton outer loop (circuit.h:892-985) per lane.  Linear circuits
+    take one solve, as the reference's ``if(!has_nonlinear_device())
+    return solve_once()``.  (B, ...) in; returns (x (B, n), states, ok
+    (B,)).  ``drives``: the digital drive slots of every lane
+    (`assemble_sparse`).
+
+    ``method``: 'dense' — dense assembly and a dense solve
+    (``dense_solve``: the f64 Gauss-Jordan for float64); 'sparse' — COO
+    assembly and the f64 Jacobi BiCGStab (``ops.sparse.bicgstab``, warm
+    started from the lane's x), for large systems: no dense matrix is
+    built (the size policy lives in the ``Circuit`` driver)."""
+    if method == "sparse":
+        layout = coo_layout(ir, drives)
+
+        def solve_once(x, st):
+            _r, _c, vals, Z, st2 = assemble_sparse(ir, params, x, st, ctx,
+                                                   drives)
+            x_new, ok, _it = bicgstab(None, None, vals, Z, ir.n_unknowns,
+                                      x0=x, layout=layout)
+            return x_new, st2, ok & torch.isfinite(x_new).all(dim=1)
+    elif method == "dense":
+        def solve_once(x, st):
+            A, Z, st2 = assemble(ir, params, x, st, ctx, drives)
+            x_new = dense_solve(A, Z)
+            return x_new, st2, torch.isfinite(x_new).all(dim=1)
+    else:
+        raise ValueError(f"unknown method {method!r}")
 
     if not ir.nonlinear:
         return solve_once(x0, states0)
@@ -410,11 +442,12 @@ def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
 
 
 def transient(ir: AnalogIR, params, x0, states0, env, t0, dt,
-              num_steps: int, drives=None):
+              num_steps: int, drives=None, method: str = "dense"):
     """Run ``num_steps`` fixed TR steps per lane from (x0, states0) at time
     t0 (host floats; step i solves at t0 + (i+1)·dt).  A failed step keeps
     the lane's previous solution (the reference rolls back tr_duration,
-    circuit.h:249-253) but takes its new states.
+    circuit.h:249-253) but takes its new states.  ``method``: the Newton
+    solves' route (`newton_solve`).
 
     Returns (x (B, n), states, ok_all (B,), xs (B, num_steps, n))."""
     t0, dt = float(t0), float(dt)
@@ -426,7 +459,7 @@ def transient(ir: AnalogIR, params, x0, states0, env, t0, dt,
         st = step_update_all(ir, params, x, st, dt, t)
         x_new, st, ok = newton_solve(ir, params, x, st,
                                      StampCtx(mode="tr", t=t, dt=dt, env=env),
-                                     drives=drives)
+                                     drives=drives, method=method)
         x = torch.where(ok[:, None], x_new, x)
         ok_all = ok_all & ok
         xs.append(x)
@@ -434,7 +467,8 @@ def transient(ir: AnalogIR, params, x0, states0, env, t0, dt,
 
 
 def transient_adaptive(ir: AnalogIR, params, x0, states0, env, t0, dt0,
-                       t_stop, max_attempts: int, dt_min, drives=None):
+                       t_stop, max_attempts: int, dt_min, drives=None,
+                       method: str = "dense"):
     """Adaptive transient of one circuit (B = 1): step-halving on Newton
     failure, growth back toward dt0 on success (the reference declares
     ``adapt_step`` in its TR settings but never wires it).  The JAX
@@ -443,7 +477,7 @@ def transient_adaptive(ir: AnalogIR, params, x0, states0, env, t0, dt0,
 
     Returns (x, states, ok, ts (A,), xs (1, A, n), acc (A,)) over the A
     attempts made; ok means t reached t_stop without the step underflowing
-    dt_min on a failure."""
+    dt_min on a failure.  ``method``: see `newton_solve`."""
     if x0.shape[0] != 1:
         raise ValueError("transient_adaptive runs one circuit (B = 1)")
     t_stop, dt0, dt_min = float(t_stop), float(dt0), float(dt_min)
@@ -459,7 +493,8 @@ def transient_adaptive(ir: AnalogIR, params, x0, states0, env, t0, dt0,
         st2 = step_update_all(ir, params, x, st, dt_eff, t_new)
         x_new, st3, ok_t = newton_solve(
             ir, params, x, st2, StampCtx(mode="tr", t=t_new, dt=dt_eff,
-                                         env=env), drives=drives)
+                                         env=env), drives=drives,
+            method=method)
         ok = bool(ok_t[0])
         if ok:
             x, st, t = x_new, st3, t_new
@@ -557,16 +592,6 @@ def ac_sweep(ir: AnalogIR, params, states, omegas):
 # ---------------------------------------------------------------------------
 # equilibrated dense f32 builds (the factor path)
 # ---------------------------------------------------------------------------
-
-def _pow2_recip_floor(x):
-    """exp2(-floor(log2(x))) for f32 x, exact: the power of two is built
-    from x's binary exponent (frexp) instead of a rounded log2."""
-    _m, e = torch.frexp(x)                  # x = m * 2^e, 0.5 <= m < 1
-    biased = (128 - e).clamp(1, 254).to(torch.int32)   # 2^(1 - e)
-    pow2 = (biased << 23).view(torch.float32)
-    return torch.where(torch.isfinite(x), pow2,
-                       torch.exp2(-torch.floor(torch.log2(x))))
-
 
 def _scatter_dense32(ir: AnalogIR, v32, npad: int):
     """Dense f32 (B, npad, npad) target of the pattern, identity on the

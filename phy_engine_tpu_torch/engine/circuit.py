@@ -20,9 +20,13 @@ analysis without relowering.  The persistent transient clock
 ``tr_duration`` carries across calls like the reference's.  Every tensor
 lives on ``Circuit.device`` ("cuda" unless the caller passes "cpu").
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item: the sparse route for ``solver="sparse"`` or n >=
-``sparse_threshold`` (item 13), and the mesh routes (item 14).
+OP, DC, TROP, TR and adaptive TR take the dense route (dense assembly,
+the f64 Gauss-Jordan) below ``sparse_threshold`` unknowns and the sparse
+route (COO assembly, the f64 Jacobi BiCGStab of ``ops/sparse.py``, no
+dense matrix) at or above it, or as ``solver`` forces; AC, noise, sens and
+the sweeps stay dense, as in the JAX package.  Not ported yet, raising
+``NotImplementedError`` with its ROADMAP.md queue 1 item: the mesh routes
+(item 14).
 """
 
 from __future__ import annotations
@@ -219,19 +223,12 @@ class Circuit:
         n = self._ir.n_unknowns if self._ir is not None else 0
         return "sparse" if n >= self.sparse_threshold else "dense"
 
-    def _dense(self):
-        """The dense route, or the sparse route's NotImplementedError."""
-        if self._method() == "sparse":
-            raise _todo(f"the sparse solver route ({self._ir.n_unknowns} "
-                        f"unknowns, solver={self.solver!r}, "
-                        f"sparse_threshold={self.sparse_threshold})", "13")
-
     def _newton(self, mode: str, params, x, st, env, max_iter=None):
         ctx = StampCtx(mode=mode, t=float(self.tr_duration), dt=0.0, env=env)
         kw = {} if max_iter is None else {"max_iter": max_iter}
         x2, st2, ok = analog.newton_solve(self._ir, _one(params), x[None],
                                           _one(st), ctx, drives=self._drives,
-                                          **kw)
+                                          method=self._method(), **kw)
         return x2[0], _lane0(st2), bool(ok[0])
 
     # -- analysis ----------------------------------------------------------
@@ -259,7 +256,6 @@ class Circuit:
         raise ValueError(f"unsupported analyze type {at}")
 
     def _analyze_op(self, mode: str) -> bool:
-        self._dense()
         params = self._params()
         x, st, ok = self._newton(mode, params, self._x, self._states,
                                  self._env_scalars())
@@ -294,18 +290,32 @@ class Circuit:
             x, st = x2, st2
         ctx = StampCtx(mode="op" if mode in ("op", "dc") else mode,
                        t=float(self.tr_duration), dt=0.0, env=env)
-        A, Z, _ = analog.assemble(self._ir, _one(params), x[None], _one(st),
-                                  ctx, self._drives)
-        A, Z = A[0], Z[0]
-        resid = (A @ x - Z).abs()
-        row_scale = A.abs() @ x.abs() + Z.abs()
-        rel = float((resid / row_scale.clamp(min=1e-30)).max())
+        rel = float(self._row_residual(ctx, params, x, st).max())
         if not np.isfinite(rel) or rel > 1e-6:
             return x, st, False
         return x, st, True
 
+    def _row_residual(self, ctx, params, x, st):
+        """|A x - Z| / (|A| |x| + |Z|) row by row at (x, st) — densely on
+        the dense route; on the sparse route from the COO values through
+        the layout's row plans (a dense A at 1e5 unknowns would be 80 GB):
+        the same formula, each row summed in a fixed order."""
+        if self._method() == "sparse":
+            _r, _c, vals, Z, _ = analog.assemble_sparse(
+                self._ir, _one(params), x[None], _one(st), ctx, self._drives)
+            lay = analog.coo_layout(self._ir, self._drives)
+            vals, Z = vals[0], Z[0]
+            resid = (lay.matvec(vals, x) - Z).abs()
+            row_scale = lay.matvec(vals.abs(), x.abs()) + Z.abs()
+        else:
+            A, Z, _ = analog.assemble(self._ir, _one(params), x[None],
+                                      _one(st), ctx, self._drives)
+            A, Z = A[0], Z[0]
+            resid = (A @ x - Z).abs()
+            row_scale = A.abs() @ x.abs() + Z.abs()
+        return resid / row_scale.clamp(min=1e-30)
+
     def _analyze_tr(self) -> bool:
-        self._dense()
         if self.tr.adaptive:
             return self._analyze_tr_adaptive()
         params = self._params()
@@ -314,7 +324,7 @@ class Circuit:
         x, st, ok, xs = analog.transient(
             self._ir, _one(params), self._x[None], _one(self._states),
             self._env_scalars(), self.tr_duration, dt, num_steps,
-            drives=self._drives)
+            drives=self._drives, method=self._method())
         ok = bool(ok[0])
         if ok:
             self._x, self._states = x[0], _lane0(st)
@@ -337,7 +347,7 @@ class Circuit:
             self._ir, _one(params), self._x[None], _one(self._states),
             self._env_scalars(), self.tr_duration, dt0,
             self.tr_duration + self.tr.t_stop, max_attempts, dt_min,
-            drives=self._drives)
+            drives=self._drives, method=self._method())
         if ok:
             self._x, self._states = x[0], _lane0(st)
             self.tr_history = xs[0].cpu().numpy()[acc]

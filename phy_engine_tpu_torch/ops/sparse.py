@@ -1,0 +1,496 @@
+"""Sparse MNA solving for large circuits (port of
+``phy_engine_tpu/ops/sparse.py``).
+
+The matrix stays in COO form — the stamp pattern is static — and the
+solver is Jacobi-preconditioned BiCGStab, whose only operations are
+gather / multiply / segment-sum matvecs and dot products: torch ops, no
+factorization and no hand kernel (the JAX package has no Pallas kernel
+here either).
+
+* ``coo_matvec`` / ``coo_diagonal`` — y = A x and diag(A) of a COO system
+  whose rows / cols may hold the ground dummy n;
+* ``ELL`` — the padded-row layout; ``BandedCOO`` — frequent diagonal
+  offsets as dense bands (a shift and a multiply each) plus a COO
+  remainder;
+* ``bicgstab`` — f64 Jacobi BiCGStab on COO (the ``Circuit`` sparse
+  route); ``bicgstab_ell`` — f32 Krylov on an ELL / BandedCOO layout with
+  f64 refinement passes (``bench_sparse.py``'s solver).
+
+Vectors carry a lane dimension ``(B, n)`` (a 1-D vector is one lane);
+values are ``(nnz,)``, shared by every lane, or ``(B, nnz)``.  Each lane
+has its own ``done`` / ``ok`` and stops as it would alone: the loop
+updates only the lanes that were still iterating, and reads the stop
+condition back to the host every ``CHECK_EVERY`` iterations, so checking
+less often gives the same result as checking every iteration.
+
+Scatter-adds are deterministic: every segment reduction goes through a
+host-built :class:`RowPlan` (entries sorted by row, rows bucketed by
+degree, a fixed summation order, no atomics), whose memory stays O(nnz)
+however wide one row is, so a run on the card reproduces itself bit for
+bit.
+
+The shadow residual of both solvers is the JAX package's pseudo-random
+vector ``frac(sin((i + 1) 12.9898) 43758.5453) + 0.5``, built once a size
+on the host in float64 and cast: the card's and the CPU's ``sin`` then
+give the same vector (in f32 at arguments near 1e6 a few ulps of ``sin``
+would otherwise become ~1e-3 in ``h``, and each platform would take its
+own Krylov path).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+CHECK_EVERY = 8      # iterations between host reads of the stop condition
+_ORDERED_MAX = 8     # rows up to this wide sum strictly left to right
+
+
+def _host(a) -> np.ndarray:
+    if torch.is_tensor(a):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _lanes(v):
+    """(v with a lane dimension, whether it had none)."""
+    return (v[None], True) if v.dim() == 1 else (v, False)
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def _norm(a):
+    return torch.linalg.vector_norm(a, dim=-1)
+
+
+def _ext(x):
+    """x with the ground dummy (0.0) appended as slot n."""
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
+
+
+class RowPlan:
+    """Deterministic segment reduction of ``(..., nnz)`` values into
+    ``(..., n_out)`` slots along a static key vector (keys outside
+    ``[0, n_out)`` are dropped), in O(nnz) memory.
+
+    Built once on the host: the entries are sorted by key (stable, so a
+    slot keeps its entries' original order) and the slots are bucketed by
+    their entry count into power-of-two widths; each bucket is a padded
+    gather table ``(slots, width)`` whose padding points at an appended
+    zero.  Padding at most doubles a slot, so the tables hold under
+    2 nnz + n_out entries whatever the widest slot — a rail node of
+    10,000 entries costs 16,384 entries, not n_out x 10,000.  A bucket up
+    to ``_ORDERED_MAX`` wide sums left to right (the JAX package's
+    sequential CPU scatter order); a wider one sums in torch's fixed
+    reduction order.  No atomics: a run reproduces itself bit for bit."""
+
+    def __init__(self, keys, n_out: int):
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        self.n_out = int(n_out)
+        nnz = keys.size
+        pos = np.nonzero((keys >= 0) & (keys < n_out))[0]
+        pos = pos[np.argsort(keys[pos], kind="stable")]
+        slots, start, counts = np.unique(keys[pos], return_index=True,
+                                         return_counts=True)
+        width = np.ones_like(counts)
+        while True:
+            short = width < counts
+            if not short.any():
+                break
+            width[short] *= 2
+        self.buckets = []
+        for w in np.unique(width):
+            sel = np.nonzero(width == w)[0]
+            cnt = counts[sel]
+            table = np.full((sel.size, int(w)), nnz, np.int64)
+            seg = np.repeat(np.arange(sel.size), cnt)
+            first = np.repeat(start[sel], cnt)
+            off = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+            table[seg, off] = pos[first + off]
+            self.buckets.append((slots[sel], table))
+        self.entries = int(sum(t.size for _s, t in self.buckets))
+        self._dev: Dict[torch.device, Any] = {}
+
+    def _tables(self, device):
+        if device not in self._dev:
+            self._dev[device] = [(torch.as_tensor(s, device=device),
+                                  torch.as_tensor(t, device=device))
+                                 for s, t in self.buckets]
+        return self._dev[device]
+
+    def _reduce(self, vals, reduce):
+        out = vals.new_zeros(vals.shape[:-1] + (self.n_out,))
+        if not self.buckets:
+            return out
+        padded = _ext(vals)
+        for slots, table in self._tables(vals.device):
+            out[..., slots] = reduce(padded[..., table])
+        return out
+
+    def sum(self, vals):
+        """Segment sum in the fixed order described above."""
+        def fixed_sum(g):
+            if g.shape[-1] > _ORDERED_MAX:
+                return g.sum(-1)
+            acc = g[..., 0]
+            for d in range(1, g.shape[-1]):
+                acc = acc + g[..., d]
+            return acc
+        return self._reduce(vals, fixed_sum)
+
+    def amax(self, vals):
+        """Segment max over a zero base (``zeros.at[keys].max(vals)``)."""
+        return self._reduce(vals, lambda g: g.amax(dim=-1))
+
+
+class COOLayout:
+    """Host-built plans of a static COO pattern over n unknowns (rows and
+    cols may hold the ground dummy n): the row sums of y = A x, the
+    diagonal and the row maxima, each a :class:`RowPlan`."""
+
+    def __init__(self, rows, cols, n: int):
+        rows = _host(rows).astype(np.int64).reshape(-1)
+        cols = _host(cols).astype(np.int64).reshape(-1)
+        self.n = int(n)
+        self.nnz = rows.size
+        self._cols_np = cols
+        self.rows = RowPlan(rows, n)
+        self.diag = RowPlan(np.where(rows == cols, rows, -1), n)
+        self._cols: Dict[torch.device, torch.Tensor] = {}
+
+    def cols(self, device):
+        if device not in self._cols:
+            self._cols[device] = torch.as_tensor(self._cols_np, device=device)
+        return self._cols[device]
+
+    def matvec(self, vals, x):
+        """y = A x; x (..., n), vals (nnz,) or (..., nnz)."""
+        return self.rows.sum(vals * _ext(x)[..., self.cols(x.device)])
+
+    def diagonal(self, vals):
+        return self.diag.sum(vals)
+
+    def row_max(self, vals):
+        return self.rows.amax(vals.abs())
+
+
+def coo_matvec(rows, cols, vals, x, n: int):
+    """y = A x with A in COO (duplicates sum); rows / cols may contain the
+    dummy index n (ground), whose entries are dropped.  Builds the
+    pattern's layout on the host; a caller that repeats a pattern keeps a
+    :class:`COOLayout` instead."""
+    return COOLayout(rows, cols, n).matvec(vals, x)
+
+
+def coo_diagonal(rows, cols, vals, n: int):
+    return COOLayout(rows, cols, n).diagonal(vals)
+
+
+@functools.lru_cache(maxsize=8)
+def _shadow_host(n: int) -> np.ndarray:
+    i = np.arange(n, dtype=np.float64)
+    h = np.sin((i + 1.0) * 12.9898) * 43758.5453
+    return (h - np.floor(h)) + 0.5
+
+
+def shadow(n: int, dtype, device) -> torch.Tensor:
+    """The shadow-residual direction h (see the module docstring)."""
+    return torch.as_tensor(_shadow_host(n), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# ELLPACK layout and diagonal bands (the JAX package's scatter-free
+# matvecs for static patterns)
+# ---------------------------------------------------------------------------
+
+class ELL:
+    """Host-built padded-row (ELLPACK) pattern for a static COO graph:
+    every row padded to the widest one, (n + 1, k) slots."""
+
+    def __init__(self, rows, cols, n: int):
+        rows = _host(rows)
+        cols = _host(cols)
+        self.n = n
+        order = np.argsort(rows, kind="stable")
+        r_s = rows[order]
+        c_s = cols[order]
+        counts = np.bincount(r_s, minlength=n + 1)
+        self.k = int(counts.max()) if len(r_s) else 1
+        slot = np.arange(len(r_s)) - np.repeat(
+            np.cumsum(np.concatenate([[0], counts[:-1]])), counts)
+        self.pos = (r_s.astype(np.int64) * self.k + slot)
+        self.perm = order.astype(np.int64)
+        colmat = np.full((n + 1) * self.k, n, np.int64)   # ghost col
+        colmat[self.pos] = c_s
+        self.colmat = colmat.reshape(n + 1, self.k)
+        self._dev: Dict[torch.device, Any] = {}
+
+    def _idx(self, device):
+        if device not in self._dev:
+            self._dev[device] = tuple(torch.as_tensor(a, device=device)
+                                      for a in (self.pos, self.perm,
+                                                self.colmat))
+        return self._dev[device]
+
+    def values(self, vals):
+        """Place COO values into the padded layout (unique slots)."""
+        pos, perm, _c = self._idx(vals.device)
+        flat = vals.new_zeros(vals.shape[:-1] + ((self.n + 1) * self.k,))
+        flat[..., pos] = vals[..., perm]
+        return flat.reshape(vals.shape[:-1] + (self.n + 1, self.k))
+
+    def matvec(self, valmat, x):
+        _p, _q, colmat = self._idx(x.device)
+        y = (valmat * _ext(x)[..., colmat]).sum(-1)
+        return y[..., :self.n]
+
+    def diag_and_rowmax(self, valmat):
+        n = self.n
+        _p, _q, colmat = self._idx(valmat.device)
+        colmat = colmat[:n]
+        rows = torch.arange(n, device=valmat.device)[:, None]
+        v = valmat[..., :n, :]
+        diag = torch.where(colmat == rows, v, 0.0).sum(-1)
+        return diag, v.abs().amax(-1)
+
+
+class BandedCOO:
+    """Diagonal-offset storage plus a small COO remainder.  Circuit
+    matrices are mostly local (chains, grids, companion stamps on the
+    diagonal): offsets d = col - row that hold at least ``min_frac`` n
+    entries (at most ``max_diags`` of them) become dense bands whose
+    matvec is a shift and a multiply; the far entries stay COO.  Duck-types
+    the ELL interface (``values`` / ``matvec`` / ``diag_and_rowmax``) for
+    ``bicgstab_ell``."""
+
+    def __init__(self, rows, cols, n: int, min_frac: float = 0.02,
+                 max_diags: int = 16):
+        rows = _host(rows).astype(np.int64)
+        cols = _host(cols).astype(np.int64)
+        self.n = n
+        offs = cols - rows
+        uniq, counts = np.unique(offs, return_counts=True)
+        count_of = dict(zip(uniq.tolist(), counts.tolist()))
+        keep = uniq[np.argsort(-counts)][:max_diags]
+        self.offsets = sorted(int(o) for o in keep
+                              if count_of[int(o)] >= min_frac * n
+                              and abs(o) < n)
+        offsets = np.asarray(self.offsets, np.int64)
+        in_band = np.isin(offs, offsets)
+        bi = np.searchsorted(offsets, offs) if offsets.size else \
+            np.zeros_like(offs)
+        band_key = np.where(in_band, bi * (n + 1) + rows, -1)
+        self.band_plan = RowPlan(band_key, len(self.offsets) * (n + 1))
+        self.rem_rows = rows[~in_band]
+        self.rem_cols = cols[~in_band]
+        self.nnz = len(rows)
+        self._rem_sel = np.nonzero(~in_band)[0]
+        self.rem_plan = RowPlan(self.rem_rows, n)
+        self.rem_diag_plan = RowPlan(
+            np.where(self.rem_rows == self.rem_cols, self.rem_rows, -1), n)
+        self._dev: Dict[torch.device, Any] = {}
+
+    def _idx(self, device):
+        if device not in self._dev:
+            self._dev[device] = (torch.as_tensor(self._rem_sel, device=device),
+                                 torch.as_tensor(self.rem_cols, device=device))
+        return self._dev[device]
+
+    def values(self, vals):
+        """(bands (..., ndiag, n + 1), remainder values (..., n_rem))."""
+        sel, _c = self._idx(vals.device)
+        bands = self.band_plan.sum(vals).reshape(
+            vals.shape[:-1] + (len(self.offsets), self.n + 1))
+        return bands, vals[..., sel]
+
+    def matvec(self, valpack, x):
+        bands, rem = valpack
+        n = self.n
+        y = None
+        for i, off in enumerate(self.offsets):
+            d = bands[..., i, :n]
+            # y[r] += d[r] * x[r + off]  (a static shift)
+            if off == 0:
+                xs = x
+            elif off > 0:
+                xs = torch.cat([x[..., off:],
+                                x.new_zeros(x.shape[:-1] + (off,))], -1)
+            else:
+                xs = torch.cat([x.new_zeros(x.shape[:-1] + (-off,)),
+                                x[..., :off]], -1)
+            y = d * xs if y is None else y + d * xs
+        if y is None:
+            y = x.new_zeros(x.shape)
+        if len(self._rem_sel):
+            _s, cc = self._idx(x.device)
+            y = y + self.rem_plan.sum(rem * _ext(x)[..., cc])
+        return y
+
+    def diag_and_rowmax(self, valpack):
+        bands, rem = valpack
+        n = self.n
+        shape = bands.shape[:-2] + (n,)
+        diag = bands.new_zeros(shape)
+        row_max = bands.new_zeros(shape)
+        for i, off in enumerate(self.offsets):
+            d = bands[..., i, :n]
+            if off == 0:
+                diag = diag + d
+            row_max = torch.maximum(row_max, d.abs())
+        if len(self._rem_sel):
+            diag = diag + self.rem_diag_plan.sum(rem)
+            row_max = torch.maximum(row_max, self.rem_plan.amax(rem.abs()))
+        return diag, row_max
+
+
+# ---------------------------------------------------------------------------
+# BiCGStab
+# ---------------------------------------------------------------------------
+
+def _safe(d, tiny):
+    return torch.where(d == 0, torch.full_like(d, tiny), d)
+
+
+def _krylov(mv, minv, x, r0, max_iter, stop, tiny, done=None):
+    """Per-lane right-preconditioned BiCGStab from the iterate x, whose
+    residual is r0.
+
+    ``stop(r_new)`` is each lane's convergence test.  A lane iterates
+    while not done (``done``: lanes that start done), finite and under
+    ``max_iter``; the update is taken only by the lanes that were
+    iterating, so a lane stops as it would alone.  Returns (x,
+    iterations, ok)."""
+    B, n = r0.shape
+    dt, dev = r0.dtype, r0.device
+    h = shadow(n, dt, dev)
+    r_hat = h * _norm(r0).clamp(min=tiny)[:, None] / _norm(h)
+    rho = _dot(r_hat, r0)
+    r, p = r0, r0
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    if done is None:
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+    ok = torch.ones(B, dtype=torch.bool, device=dev)
+    k = 0
+    while k < max_iter:
+        for _ in range(min(CHECK_EVERY, max_iter - k)):
+            run = (~done) & ok & (it < max_iter)
+            p_hat = minv * p
+            v = mv(p_hat)
+            alpha = rho / _safe(_dot(r_hat, v), tiny)
+            s = r - alpha[:, None] * v
+            s_hat = minv * s
+            t = mv(s_hat)
+            omega = _dot(t, s) / _safe(_dot(t, t), tiny)
+            x_new = x + alpha[:, None] * p_hat + omega[:, None] * s_hat
+            r_new = s - omega[:, None] * t
+            rho_new = _dot(r_hat, r_new)
+            beta = (rho_new / _safe(rho, tiny)) * (alpha / _safe(omega, tiny))
+            p_new = r_new + beta[:, None] * (p - omega[:, None] * v)
+            run2 = run[:, None]
+            x = torch.where(run2, x_new, x)
+            r = torch.where(run2, r_new, r)
+            p = torch.where(run2, p_new, p)
+            rho = torch.where(run, rho_new, rho)
+            done = torch.where(run, stop(r_new), done)
+            ok = torch.where(run, torch.isfinite(x_new).all(-1), ok)
+            it = it + run.to(it.dtype)
+            k += 1
+        if not bool(((~done) & ok & (it < max_iter)).any()):
+            break
+    return x, it, ok
+
+
+def bicgstab(rows, cols, vals, b, n: int, x0=None, tol: float = 1e-10,
+             max_iter: int = 400, diag_floor: float = 1e-9,
+             layout: COOLayout = None):
+    """Jacobi-preconditioned BiCGStab on a COO system, in b's dtype.
+
+    b (B, n) or (n,); vals (nnz,) or (B, nnz); x0 like b.  Returns (x,
+    converged, iterations), per lane.  ``layout``: a prebuilt
+    :class:`COOLayout` of (rows, cols) (the ``Circuit`` route caches one
+    per pattern).  ``diag_floor`` is kept for the JAX signature (unused
+    there too)."""
+    lay = layout if layout is not None else COOLayout(rows, cols, n)
+    b2, one = _lanes(b)
+    dtype = b2.dtype
+    vals = vals.to(dtype)
+    mv = functools.partial(lay.matvec, vals)
+    d = lay.diagonal(vals)
+    # row-max-scaled Jacobi: the diagonal where it carries the row's
+    # weight, else (structural-zero source rows) the row's max |entry|
+    row_max = lay.row_max(vals).clamp(min=1e-300)
+    minv = 1.0 / torch.where(d.abs() > 1e-3 * row_max, d, row_max)
+    x = torch.zeros_like(b2) if x0 is None else _lanes(x0.to(dtype))[0]
+    b_norm = _norm(b2).clamp(min=1e-300)
+    r = b2 - mv(x)
+
+    def stop(r_new):
+        return _norm(r_new) / b_norm < tol
+
+    x, it, ok = _krylov(mv, minv, x, r, max_iter, stop, 1e-300)
+    res = _norm(b2 - mv(x)) / b_norm
+    conv = (res < tol * 10.0) & ok
+    if one:
+        return x[0], conv[0], it[0]
+    return x, conv, it
+
+
+def bicgstab_ell(ell, vals, b, x0=None, tol: float = 1e-10,
+                 max_iter: int = 400, inner_tol: float = 1e-6,
+                 refine: int = 5):
+    """Mixed-precision BiCGStab on an ELL / BandedCOO pattern.
+
+    Krylov iterations run in f32; up to ``refine`` outer passes
+    recompute the residual in f64 and solve for the correction until it
+    meets ``tol`` (the dense GJ path's refinement discipline).  b (B, n)
+    or (n,).  Returns (x, converged, total iterations), per lane."""
+    f64, f32 = torch.float64, torch.float32
+    b2, one = _lanes(b.to(f64))
+    vm64 = ell.values(vals.to(f64))
+    vm32 = tuple(a.to(f32) for a in vm64) if isinstance(vm64, tuple) \
+        else vm64.to(f32)
+    bnorm = _norm(b2).clamp(min=1e-300)
+    x = torch.zeros_like(b2) if x0 is None else _lanes(x0.to(f64))[0]
+
+    # f32 Jacobi preconditioner with the row-max floor (see bicgstab)
+    diag, row_max = ell.diag_and_rowmax(vm32)
+    row_max = row_max.clamp(min=1e-30)
+    minv = 1.0 / torch.where(diag.abs() > 1e-3 * row_max, diag, row_max)
+    mv32 = functools.partial(ell.matvec, vm32)
+
+    total = torch.zeros(b2.shape[0], dtype=torch.int64, device=b2.device)
+    for _ in range(refine):
+        r64 = b2 - ell.matvec(vm64, x)
+        r_norm = _norm(r64)
+        need = r_norm / bnorm >= tol
+        if not bool(need.any()):
+            break
+        # the correction's system is solved for the unit-norm residual
+        # and scaled back: BiCGStab is scale-invariant, and a residual
+        # already near f64 rounding would otherwise drive the f32
+        # recurrences into subnormals, where they stall on a card (and on
+        # a CPU) that does not flush them to zero
+        scale = r_norm.clamp(min=1e-300)[:, None]
+        r32 = (r64 / scale).to(f32)
+        r0n = _norm(r32).clamp(min=1e-30)
+
+        def stop(r_new, r0n=r0n):
+            return _norm(r_new) / r0n < inner_tol
+
+        # a lane whose residual already meets tol takes no pass; a pass
+        # that goes non-finite contributes dx = 0; the f64 residual below
+        # is the sole convergence verdict
+        dx, it, ok = _krylov(mv32, minv, torch.zeros_like(r32), r32,
+                             max_iter, stop, 1e-30, done=~need)
+        x = x + torch.where(ok[:, None], dx, 0.0).to(f64) * scale
+        total = total + it
+    res = _norm(b2 - ell.matvec(vm64, x)) / bnorm
+    conv = (res < tol * 10.0) & torch.isfinite(x).all(-1)
+    if one:
+        return x[0], conv[0], total[0]
+    return x, conv, total

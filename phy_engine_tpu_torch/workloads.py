@@ -41,6 +41,7 @@ tests' design, 16 the reference's test/0028.16b_adc.
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Dict, List, NamedTuple
 
@@ -489,3 +490,322 @@ def sar_convert(adc: Sar, v_in: float):
     code = sum((c.node_digital(n) & 1) << i
                for i, n in enumerate(adc.ports["code"]))
     return code, c.node_voltage(adc.n_dac).real
+
+
+# ---------------------------------------------------------------------------
+# large systems: the resistor ladders (bench_ladder.py) and the random-link
+# meshes (bench_sparse.py, tests/test_sparse.py)
+# ---------------------------------------------------------------------------
+
+LADDER_R, LADDER_V = 30.0, 3.0
+MESH_R, MESH_V = 1000.0, 1.0
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def ladder_netlist(n_res: int) -> Netlist:
+    """The reference's series chain (benchmark/0001.models/1000000xR.cpp):
+    a VDC of ``LADDER_V`` from the top node to ground across ``n_res``
+    resistors of ``LADDER_R`` in series (bench_ladder.py:41-61)."""
+    nl = Netlist()
+    v = netops.add_model(nl, VDC, {"V": LADDER_V})
+    top = netops.create_node(nl)
+    netops.add_to_node(nl, v, 0, top)
+    netops.add_to_node(nl, v, 1, nl.ground_node)
+    prev = top
+    for _ in range(n_res - 1):
+        r = netops.add_model(nl, RESISTANCE, {"r": LADDER_R})
+        nxt = netops.create_node(nl)
+        netops.add_to_node(nl, r, 0, prev)
+        netops.add_to_node(nl, r, 1, nxt)
+        prev = nxt
+    r = netops.add_model(nl, RESISTANCE, {"r": LADDER_R})
+    netops.add_to_node(nl, r, 0, prev)
+    netops.add_to_node(nl, r, 1, nl.ground_node)
+    return nl
+
+
+def ladder_ir(n_res: int):
+    return lower_analog(ladder_netlist(n_res))
+
+
+def ladder_extract(rows, cols, vals, Z, n: int):
+    """The host's symbolic phase (bench_ladder.py:178-198): the ladder's
+    COO system over n unknowns (n - 1 nodes, then the source's branch) as
+    a tridiagonal core (dl, d, du), the border column e and the right
+    sides (z, rhs_b), host float64."""
+    nn = n - 1
+    keep = (rows < n) & (cols < n)
+    r_, c_, v_ = rows[keep], cols[keep], vals[keep]
+    node = (r_ < nn) & (c_ < nn)
+    d, dl, du, e = (np.zeros(nn) for _ in range(4))
+    diag = node & (r_ == c_)
+    np.add.at(d, r_[diag], v_[diag])
+    sub = node & (r_ == c_ + 1)
+    np.add.at(dl, r_[sub], v_[sub])
+    sup = node & (c_ == r_ + 1)
+    np.add.at(du, r_[sup], v_[sup])
+    brow = (r_ == nn) & (c_ < nn)
+    np.add.at(e, c_[brow], v_[brow])
+    return dl, d, du, e, np.asarray(Z[:nn], np.float64), float(Z[nn])
+
+
+def ladder_ramp_tol(n_res: int) -> float:
+    """The direct mode's accuracy gate on a native-f64 platform,
+    ``max(1e-6, 1e4 eps N)`` with eps = 1.2e-16 (bench_ladder.py:135-137):
+    the ladder Laplacian's cond ~N^2 sets every backward-stable solver's
+    forward error."""
+    return max(1e-6, 1e4 * 1.2e-16 * n_res)
+
+
+def ladder_dc(n_res: int = 10 ** 6, refine: int = 4, solves: int = 5,
+              device="cuda") -> dict:
+    """The port's ``bench_ladder.py`` default mode (``main``, :152-249):
+    build the ``n_res``-resistor ladder's netlist and IR, assemble its COO
+    system on ``device`` (``assemble_sparse``) and fetch it, extract the
+    tridiagonal core and the source's border on the host, then solve by
+    ``ops.tridiag.border_solve`` (PCR + Schur, ``refine`` passes): one
+    warm-up solve, then ``solves`` timed ones with varied right sides
+    (:213-223).  Returns the timings, the solution and the exact check's
+    numbers: v (host) and i_src of the last solve, whose source voltage
+    is V times rhs_scale, max_ramp_err, i_err (|i + V/(N R)|) and the
+    bench's native-f64 tol (1e-6, :237); ``again`` reruns the last solve
+    (for a profiler)."""
+    from .ops.tridiag import border_solve
+    t0 = time.perf_counter()
+    ir = ladder_ir(n_res)
+    build_s = time.perf_counter() - t0
+    n = ir.n_unknowns                        # n_res nodes + 1 branch
+    params = analog.initial_params(ir, device)
+    states = analog.initial_state(ir, device)
+    ctx = StampCtx(mode="op", t=0.0, dt=0.0, env=default_env())
+    x0 = analog.initial_x(ir, device)[None]
+
+    def assemble():
+        rows, cols, vals, Z, _ = analog.assemble_sparse(
+            ir, {k: v[None] for k, v in params.items()}, x0,
+            {k: {s: a[None] for s, a in d.items()} for k, d in states.items()},
+            ctx)
+        return (rows.cpu().numpy(), cols.cpu().numpy(), vals[0].cpu().numpy(),
+                Z[0].cpu().numpy())
+
+    assemble()                                 # plans and patterns built
+    _sync(device)
+    t0 = time.perf_counter()
+    rows, cols, vals, Z = assemble()
+    assemble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dl, d, du, e, z, rhs_b = ladder_extract(rows, cols, vals, Z, n)
+    extract_s = time.perf_counter() - t0
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    dl_d, d_d, du_d, e_d = dev(dl), dev(d), dev(du), dev(e)
+
+    def solve(zk, rb):
+        return border_solve(dl_d, d_d, du_d, zk, e_d, rb, refine=refine)
+
+    v, i_src = solve(dev(z), dev(rhs_b))
+    float(i_src)
+    ts = []
+    for k in range(solves):
+        zk = dev(z + 0.0 * k)                  # vary to defeat memoization
+        rbk = dev(rhs_b * (1.0 + 1e-9 * k))
+        _sync(device)
+        t0 = time.perf_counter()
+        v, i_src = solve(zk, rbk)
+        float(i_src)
+        ts.append(time.perf_counter() - t0)
+    v = v.cpu().numpy()
+    ramp = LADDER_V - np.arange(n - 1) * (LADDER_V / n_res)
+    i_exp = LADDER_V / (n_res * LADDER_R)
+    return dict(n_res=n_res, build_s=build_s, assemble_s=assemble_s,
+                again=lambda: solve(zk, rbk),
+                extract_s=extract_s, solve_s=ts, v=v, i_src=float(i_src),
+                rhs_scale=1.0 + 1e-9 * (solves - 1) if solves else 1.0,
+                max_ramp_err=float(np.abs(v - ramp).max()),
+                i_err=abs(float(i_src) + i_exp), i_exp=i_exp, tol=1e-6)
+
+
+def ladder_direct(n_res: int = 10 ** 8, chunks: int = 512, nbatch: int = 4,
+                  refine: int = 1, solves: int = 3, device="cuda") -> dict:
+    """The port's ``bench_ladder.py`` solver-scale mode (``main_direct``,
+    :64-149, the reference's 100000000xR.cpp): the ladder's tridiagonal
+    core and unit border synthesized directly at ``n_res`` (a netlist of
+    10^8 instances is out of scope for both object models): dl and du
+    built on ``device``, the pivot table from ``spike_host_pivots`` in
+    host f64, then ``spike_border_solve_unit_factor`` (SPIKE, ``chunks``
+    chunks in ``nbatch`` sub-batches) and ``solves`` timed bordered solves
+    (``refine`` passes) after a warm-up.  Returns the factor's seconds,
+    the solve seconds, the last solve's ramp sampled at nodes 0, N/2 and
+    N - 1 (its source voltage V times rhs_scale), the check's numbers and
+    ``again``, which reruns the last solve."""
+    from .ops.tridiag import (spike_border_solve_unit,
+                              spike_border_solve_unit_factor,
+                              spike_host_pivots)
+    g = 1.0 / LADDER_R
+    f64 = torch.float64
+    dl = torch.full((n_res,), -g, dtype=f64, device=device)
+    du = torch.full((n_res,), -g, dtype=f64, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    d_h = np.full(n_res, 2.0 * g)
+    d_h[0] = g
+    off = np.full(n_res, -g)
+    dp = spike_host_pivots(off, d_h, off, chunks)
+    del d_h, off
+    pivots_s = time.perf_counter() - t0
+    fac, t_e, ete = spike_border_solve_unit_factor(
+        dl, None, du, idx=0, chunks=chunks, nbatch=nbatch, dp=dp)
+    del dp, dl, du
+    _sync(device)
+    factor_s = time.perf_counter() - t0
+    z = torch.zeros(n_res, dtype=f64, device=device)
+
+    def solve(rb):
+        return spike_border_solve_unit(fac, t_e, ete, z, rb, idx=0,
+                                       refine=refine)
+
+    v, i_src = solve(torch.tensor(LADDER_V, dtype=f64, device=device))
+    float(i_src)
+    ts = []
+    for k in range(solves):
+        rbk = torch.tensor(LADDER_V * (1.0 + 1e-9 * k), dtype=f64,
+                           device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        v, i_src = solve(rbk)
+        float(i_src)
+        ts.append(time.perf_counter() - t0)
+    idx = np.array([0, n_res // 2, n_res - 1])
+    vs = v[torch.as_tensor(idx, device=v.device)].cpu().numpy()
+    ramp = LADDER_V - idx * (LADDER_V / n_res)
+    i_exp = LADDER_V / (n_res * LADDER_R)
+    return dict(n_res=n_res, chunks=chunks, nbatch=nbatch, refine=refine,
+                again=lambda: solve(rbk),
+                pivots_s=pivots_s, factor_s=factor_s, solve_s=ts,
+                v_sampled=vs, i_src=float(i_src),
+                rhs_scale=1.0 + 1e-9 * (solves - 1) if solves else 1.0,
+                max_ramp_err=float(np.abs(vs - ramp).max()),
+                i_err=abs(float(i_src) + i_exp), i_exp=i_exp,
+                tol=ladder_ramp_tol(n_res))
+
+
+def sparse_mesh_coo(n: int, links: int, seed: int = 1):
+    """The reference's 100000_random_links_* topology
+    (100000_random_links_cpu.cpp:120-165; bench_sparse.py ``build_coo``,
+    :33-72): ground -> n0 chain -> n_{N-1} of ``MESH_R``, a VDC of
+    ``MESH_V`` at n_{N-1} (one branch unknown) and ``links`` random links
+    of ``MESH_R``.  Returns host (rows, cols, vals, z) over n + 1
+    unknowns."""
+    rng = np.random.default_rng(seed)
+    g = 1.0 / MESH_R
+    gl = 1.0 / MESH_R
+    rows, cols, vals = [[0]], [[0]], [[g]]
+    i = np.arange(n - 1)
+    rows += [i, i + 1, i, i + 1]
+    cols += [i, i + 1, i + 1, i]
+    vals += [np.full(n - 1, g), np.full(n - 1, g),
+             np.full(n - 1, -g), np.full(n - 1, -g)]
+    a = rng.integers(0, n, links)
+    b = rng.integers(0, n, links)
+    fix = a == b
+    b[fix] = (b[fix] + 1) % n
+    rows += [a, b, a, b]
+    cols += [a, b, b, a]
+    vals += [np.full(links, gl), np.full(links, gl),
+             np.full(links, -gl), np.full(links, -gl)]
+    br = n
+    rows += [[n - 1], [br]]
+    cols += [[br], [n - 1]]
+    vals += [[1.0], [1.0]]
+    z = np.zeros(n + 1)
+    z[br] = MESH_V
+    rows = np.concatenate([np.asarray(r) for r in rows]).astype(np.int32)
+    cols = np.concatenate([np.asarray(c) for c in cols]).astype(np.int32)
+    vals = np.concatenate([np.asarray(v, np.float64) for v in vals])
+    return rows, cols, vals, z
+
+
+def sparse_mesh_solve(rows, cols, vals, z, max_iter: int = 20000,
+                      solves: int = 3, device="cuda") -> dict:
+    """The port's ``bench_sparse.py`` device case (``tpu_case``, :75-100):
+    ``BandedCOO`` + ``bicgstab_ell`` (tol 1e-10, ``max_iter``) on the
+    right side z scaled by 1, then ``solves`` timed solves at scales
+    1 + 1e-3 (k + 1).  Returns ok, the iterations, the seconds of each
+    timed solve (none when the first solve did not converge), the last
+    solution x with its scale, and ``again``, which reruns a solve."""
+    from .ops.sparse import BandedCOO, bicgstab_ell
+    ell = BandedCOO(rows, cols, len(z))
+    vals_d = torch.as_tensor(vals, dtype=torch.float64, device=device)
+    z_d = torch.as_tensor(z, dtype=torch.float64, device=device)
+
+    def solve(scale):
+        return bicgstab_ell(ell, vals_d, z_d * scale, tol=1e-10,
+                            max_iter=max_iter)
+
+    x, ok, it = solve(1.0)
+    out = dict(ok=bool(ok), iters=int(it), solve_s=[], x=x.cpu().numpy(),
+               scale=1.0, again=lambda: solve(1.0))
+    if not out["ok"]:
+        return out
+    for k in range(solves):
+        scale = 1.0 + 1e-3 * (k + 1)
+        _sync(device)
+        t0 = time.perf_counter()
+        x, ok, it = solve(scale)
+        x = x.cpu().numpy()
+        out["solve_s"].append(time.perf_counter() - t0)
+        out.update(ok=out["ok"] and bool(ok), iters=int(it), x=x, scale=scale)
+    return out
+
+
+def sparse_mesh_splu(rows, cols, vals, z, solves: int = 3):
+    """bench_sparse.py's host denominator (``cpu_case``, :103-116, which
+    runs max(2, 3) solves): scipy SparseLU, factor and solve each time, at
+    right sides scaled 1 + 1e-3 (k + 1).  Returns (seconds of each solve,
+    the last solution, its scale)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    nu = len(z)
+    ts, x, scale = [], None, 1.0
+    for k in range(solves):
+        scale = 1.0 + 1e-3 * (k + 1)
+        t0 = time.perf_counter()
+        A = sp.csc_matrix((vals, (rows, cols)), shape=(nu, nu))
+        x = spl.splu(A).solve(z * scale)
+        ts.append(time.perf_counter() - t0)
+    return ts, x, scale
+
+
+def random_mesh_netlist(n_nodes: int = 400, n_links: int = 1600,
+                        seed: int = 3):
+    """tests/test_sparse.py:14-38's random mesh: a VDC of 5 V on node 0,
+    a grounding resistor on every ``n_nodes // 8``-th node and
+    ``n_links`` random links (a self-loop draw is skipped), resistances
+    uniform in 10 Ω .. 10 kΩ, the same draws in the same order.  Returns
+    (netlist, nodes)."""
+    rng = np.random.default_rng(seed)
+    nl = Netlist()
+    nodes = [netops.create_node(nl) for _ in range(n_nodes)]
+    v = netops.add_model(nl, VDC, {"V": 5.0})
+    netops.add_to_node(nl, v, 0, nodes[0])
+    netops.add_to_node(nl, v, 1, nl.ground_node)
+    for k in range(0, n_nodes, max(1, n_nodes // 8)):
+        r = netops.add_model(nl, RESISTANCE,
+                             {"r": float(rng.uniform(10, 1e4))})
+        netops.add_to_node(nl, r, 0, nodes[k])
+        netops.add_to_node(nl, r, 1, nl.ground_node)
+    for _ in range(n_links):
+        a, b = rng.integers(0, n_nodes, 2)
+        if a == b:
+            continue
+        r = netops.add_model(nl, RESISTANCE,
+                             {"r": float(rng.uniform(10, 1e4))})
+        netops.add_to_node(nl, r, 0, nodes[int(a)])
+        netops.add_to_node(nl, r, 1, nodes[int(b)])
+    return nl, nodes

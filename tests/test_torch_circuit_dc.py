@@ -176,4 +176,4 @@ def test_warm_restart_from_node_voltages():
 
 
 def test_unported_routes_raise_naming_their_item():
-    assert unported_routes_raise("cpu") == 6
+    assert unported_routes_raise("cpu") == 4

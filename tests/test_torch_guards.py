@@ -39,7 +39,7 @@ def test_port_imports_no_jax():
         "          'parallel.batch', 'ops.linsolve', 'engine.noise',\n"
         "          'engine.sens', 'models.bsim3', 'models.dual',\n"
         "          'digital.engine', 'digital.flash', 'digital.ir',\n"
-        "          'models.verilog_module'):\n"
+        "          'models.verilog_module', 'ops.sparse', 'ops.tridiag'):\n"
         "    assert 'phy_engine_tpu_torch.' + m in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'phy_engine_tpu', 'triton'))\n"

@@ -184,6 +184,33 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               class), B = 128 x 16 ticks of random per-lane stimulus,
               bit-identical to the batched levelled tick.  Prints each
               wall and gate-evals/s.
+20. synthesis and the host sweep engine (runs after 15, before 16) — (a)
+              RV32 synthesized at -O2 on the host (verilog/opt_graph.py,
+              opt_map.py: host Python and the g++-built truth-table
+              library native/pe_tt.cpp): its live devices by type and
+              its logic gates equal workloads.RV32_O2_COUNTS, which
+              tests/test_torch_synth_rv32.py holds the JAX package to;
+              prints the host seconds.  (b) Circuit.digital_run on the
+              -O2 core, reset plus 200 clocks (404 ticks): result 4264,
+              done 1, the turbo kernel launched (these launches join its
+              count in the kernels line); wall and gate-evals/s beside
+              phase 7's -O1 figures, the kernel alone at B = 1 x 404
+              beside its bound; then digital_run_batch, B = 128, every
+              result 4264; then the kernel against its plain version on
+              the -O2 core, B = 2 x 8 ticks from reset, bit-identical
+              (its difference joins max_abs_err in the kernels line).
+              (c) The host sweep engine (DigitalEngine(backend="native"),
+              native/pe_digital.cpp built by g++) on phase 6's -O1 core
+              and on the -O2 core, 404 ticks from reset each: its full
+              (T, S) history bit-identical to the turbo kernel's of the
+              same schedule on the card; the first run builds the
+              library and the plan, the second, timed, runs on the warm
+              plan: host wall and gate-evals/s beside the card's
+              Circuit.digital_run wall of the same core.  (d) The fp16
+              adder at -O3 with assume_binary_inputs and at -O1, 4 x 32
+              lanes of random binary operands (numpy default_rng(20)),
+              one tick through the turbo kernel (run_ticks_batched with a
+              watch list): the -O3 outputs equal the -O1 outputs, no X.
 
 16. sparse Circuit — the Circuit driver's sparse route (COO assembly and
               the f64 Jacobi BiCGStab of ops/sparse.py, torch ops) on
@@ -1499,6 +1526,137 @@ def phase15_flash(dev, smi, rv32, B=128, ticks=100):
 
 
 # ---------------------------------------------------------------------------
+# synthesis at -O2 and above, the host sweep engine (phase 20)
+# ---------------------------------------------------------------------------
+
+def fp16_outputs(dev, syn, words):
+    """One tick of the synthesized fp16 adder through the turbo kernel,
+    B = len(words) instances of 32 lanes: ``words[i][port][bit]`` is the
+    lane word of that input bit.  Returns (v, u) of the ``y`` bits,
+    (B, 16) uint32, and the kernel's launches."""
+    c = syn.circuit
+    comp = [c._compile_schedule([{m: (int(w[p][i]), 0) for p in ("a", "b")
+                                  for i, m in enumerate(syn.ins[p])}])
+            for w in words]
+    eng, fs = comp[0][:2]
+    check(turbo.eligible(eng.ir), "the fp16 netlist is not turbo-eligible")
+    watch = [eng.ir.node_sig[id(n)] for n in syn.nets["y"]]
+    before = turbo.run_turbo.launches
+    v, u = eng.run_ticks_batched(fs, np.stack([x[2] for x in comp]),
+                                 np.stack([x[3] for x in comp]), watch=watch)
+    return v[:, 0], u[:, 0], turbo.run_turbo.launches - before
+
+
+def phase20_synth(dev, smi, rv32, o1, cycles=200):
+    """Synthesis and the host sweep engine (see the module docstring,
+    phase 20).  ``rv32``: phase 6's -O1 core; ``o1``: phase 7's wall and
+    kernel ms.  Returns the turbo launches of (b), the main path's, and
+    the kernel's largest difference from its plain version on the -O2
+    core."""
+    from phy_engine_tpu_torch.digital.engine import DigitalEngine
+    ticks = 4 + 2 * cycles
+    # (a) synthesis at -O2
+    syn = workloads.synth_counts("rv32", 2, device=dev)
+    want = workloads.RV32_O2_COUNTS
+    check((syn.counts, syn.logic_gates) == want,
+          f"RV32 -O2 devices {syn.counts}, {syn.logic_gates} logic gates; "
+          f"expected {want}")
+    rv2 = workloads.rv32_of(syn)
+    say(20, f"RV32 synthesized at -O2: {sum(syn.counts.values())} live devices, "
+        f"{syn.logic_gates} logic gates (-O1: {rv32.gates} gates + FFs, -O2: "
+        f"{rv2.gates}), equal to workloads.RV32_O2_COUNTS; {syn.seconds:.1f} s "
+        f"on the host; {smi}")
+    # (b) the -O2 core on the card
+    workloads.rv32_run(1, 2, design=rv2)                         # warm-up
+    torch.cuda.synchronize()
+    turbo.run_turbo.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res, done = workloads.rv32_run(1, cycles, design=rv2)
+    end.record()
+    torch.cuda.synchronize()
+    n1 = turbo.run_turbo.launches
+    sec = start.elapsed_time(end) / 1e3
+    walls = {"-O1": o1["wall_ms"], "-O2": sec * 1e3}
+    check(n1 > 0, "the -O2 core's digital_run never launched the turbo kernel")
+    check(int(res[0]) == rv2.expect and int(done[0]) == 1,
+          f"RV32 -O2 result {int(res[0])} done {int(done[0])}, expected "
+          f"{rv2.expect} and 1")
+    say(20, f"RV32 -O2 Circuit.digital_run {ticks} ticks: result {int(res[0])}, "
+        f"done {int(done[0])}; wall {sec * 1e3:.1f} ms "
+        f"({rv2.gates * ticks / sec:.4e} gate-evals/s) against -O1's "
+        f"{o1['wall_ms']:.1f} ms (phase 7) on {smi}; turbo launches {n1}")
+    k_ms, b_ms = turbo_kernel_ms(dev, rv2, 1, ticks)
+    say(20, f"the kernel alone on the -O2 core, B=1 x {ticks} ticks, full "
+        f"history: {k_ms:.3f} ms ({k_ms / ticks * 1e3:.2f} us per tick) "
+        f"against -O1's {o1['kernel_ms']:.3f} ms; bound {b_ms:.4f} ms")
+    B = 128
+    before = turbo.run_turbo.launches
+    start.record()
+    res, done = workloads.rv32_run(B, cycles, design=rv2)
+    end.record()
+    torch.cuda.synchronize()
+    sec = start.elapsed_time(end) / 1e3
+    n128 = turbo.run_turbo.launches - before
+    check(n128 > 0, "the -O2 core's digital_run_batch never launched turbo")
+    check(bool((res == rv2.expect).all()) and bool((done == 1).all()),
+          f"batched RV32 -O2: {int((res != rv2.expect).sum())} of {B} "
+          "instances did not end with the expected result")
+    say(20, f"RV32 -O2 digital_run_batch B={B} x {2 * cycles} ticks: all {B} "
+        f"results {rv2.expect}; wall {sec * 1e3:.1f} ms, aggregate "
+        f"{rv2.gates * (B * 2 * cycles + 4) / sec:.4e} gate-evals/s on {smi}; "
+        f"turbo launches {n128}")
+    err = turbo_err(turbo_cases.rv32_case(2, 8, dev, design=rv2))
+    check(err == 0, f"turbo on the -O2 core: kernel != plain, max abs err "
+          f"{err}")
+    say(20, "RV32 -O2 from reset, B=2, 8 ticks, full history: kernel "
+        "bit-identical to plain")
+    # (c) the host sweep engine on both cores against the card's turbo
+    for level, d in (("-O1", rv32), ("-O2", rv2)):
+        reset, body = workloads.rv32_schedules(d, cycles)
+        eng, fs, FV, FU = d.circuit._compile_schedule(reset + body)
+        nat = DigitalEngine(d.circuit.nl, dev, backend="native")
+        t0 = time.perf_counter()
+        nat.run_ticks(fs, FV, FU)          # builds the library and the plan
+        first_s = time.perf_counter() - t0
+        nat.reset_state()
+        t0 = time.perf_counter()
+        nv, nu = nat.run_ticks(fs, FV, FU)
+        nat_s = time.perf_counter() - t0
+        eng.reset_state()
+        tv, tu = eng.run_ticks(fs, FV, FU)
+        check(np.array_equal(nv, tv) and np.array_equal(nu, tu),
+              f"the host sweep engine's RV32 {level} history != the turbo "
+              "kernel's")
+        say(20, f"host sweep engine (native/pe_digital.cpp), RV32 {level} "
+            f"{ticks} ticks from reset: full ({ticks}, {nv.shape[1]}) "
+            f"history bit-identical to the turbo kernel's on the card; host "
+            f"wall {nat_s * 1e3:.1f} ms on the second run "
+            f"({d.gates * ticks / nat_s:.4e} gate-evals/s) against the "
+            f"card's {walls[level]:.1f} ms (Circuit.digital_run, {smi}); "
+            f"first run (g++ build, plan, narrowed cones) {first_s:.2f} s")
+    # (d) fp16 at -O3 (binary inputs) against -O1 on binary vectors
+    s1 = workloads.synth_counts("fp16_add", 1, device=dev)
+    s3 = workloads.synth_counts("fp16_add", 3, binary=True, device=dev)
+    rng = np.random.default_rng(20)
+    words = [{p: rng.integers(0, 1 << 32, 16, dtype=np.uint64)
+              for p in ("a", "b")} for _ in range(4)]
+    v1, u1, n_1 = fp16_outputs(dev, s1, words)
+    v3, u3, n_3 = fp16_outputs(dev, s3, words)
+    check(n_1 > 0 and n_3 > 0, "fp16 never launched the turbo kernel")
+    check(not u1.any() and not u3.any(), "an fp16 output is X on binary "
+          "inputs")
+    check(np.array_equal(v3, v1), "fp16 -O3 outputs != -O1 outputs")
+    say(20, f"fp16 adder -O3 (assume_binary_inputs: {s3.logic_gates} logic "
+        f"gates, {sum(s3.counts.values())} live devices, synthesized in "
+        f"{s3.seconds:.1f} s on the host) against -O1 ({s1.logic_gates} "
+        f"logic gates): 4 x 32 lanes of random binary operands through the "
+        f"turbo kernel, every output bit equal, none X")
+    return n1 + n128, err
+
+
+# ---------------------------------------------------------------------------
 # large systems (phases 2's solve_batched and 16-19)
 # ---------------------------------------------------------------------------
 
@@ -1957,6 +2115,7 @@ def main():
         f"{k_ms:.3f} ms ({k_ms / ticks * 1e3:.2f} us per tick), "
         f"{100 * k_ms / (sec * 1e3):.1f} % of the wall above; bound "
         f"{b_ms:.4f} ms ({100 * b_ms / k_ms:.2f} % of it)")
+    o1 = {"wall_ms": sec * 1e3, "kernel_ms": k_ms}           # for phase 20
 
     # phase 8: 128 instances through digital_run_batch
     B = 128
@@ -2019,6 +2178,14 @@ def main():
         t0 = time.perf_counter()
         fn(*args)
         say(phase, f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+
+    # phase 20: synthesis at -O2 and above, and the host sweep engine
+    t0 = time.perf_counter()
+    n20, err20 = phase20_synth(dev, smi, rv32, o1)
+    launches[TURBO["name"]] += n20
+    results[TURBO["name"]]["max_abs_err"] = max(
+        results[TURBO["name"]]["max_abs_err"], err20)
+    say(20, f"phase 20 took {time.perf_counter() - t0:.1f} s")
 
     # phases 16-19: large systems.  The CPU references run beside them in
     # processes of their own: phase 16's sequence on the CPU and phase

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..netlist.netlist import Netlist
-from . import logic, turbo
+from . import check_backend, logic, turbo
 from .ir import DigitalIR, Segment, bind_analog_indices, lower_digital
 
 FULL = 0xFFFFFFFF
@@ -672,11 +672,18 @@ class DigitalEngine:
     """Owns the digital IR, planes, and sequential state across ticks.
 
     ``device``: where the ticks run ("cuda" by default; "cpu" runs the
-    levelled tick and the turbo tick's plain torch version there)."""
+    levelled tick and the turbo tick's plain torch version there).
+    ``backend``: what :meth:`tick` and :meth:`run_ticks` clock with —
+    "device" (the turbo kernel when ``turbo.eligible``, else the
+    levelled tick) or "native" (the host sweep engine,
+    ``digital/native_run.py``; raises ``ValueError`` for a design it
+    cannot run).  :meth:`run_ticks_batched` runs on the device either
+    way."""
 
-    def __init__(self, nl: Netlist, device="cuda"):
+    def __init__(self, nl: Netlist, device="cuda", backend: str = "device"):
         self.nl = nl
         self.device = torch.device(device)
+        self.backend = check_backend(backend)
         self.ir: Optional[DigitalIR] = lower_digital(nl)
         if self.ir is None:
             raise ValueError("the netlist has no digital devices")
@@ -684,6 +691,7 @@ class DigitalEngine:
         self._plans: Dict[bytes, turbo.TurboPlan] = {}
         self._flash: Dict[bytes, object] = {}
         self._tick_fn: Optional[LevelTick] = None
+        self._native_plan = None
         self._n_analog = 0
         self._us_code = None     # Tsu/Th unsteady-state automata
         self.reset_state()
@@ -975,9 +983,13 @@ class DigitalEngine:
         self._writeback()
 
     def tick(self, analog_v: np.ndarray):
-        """One digital_clk() on the levelled tick; returns the drive
-        dict (or None)."""
+        """One digital_clk() on the levelled tick (the host sweep engine
+        with ``backend="native"``); returns the drive dict (or None)."""
         fs, fv, fu = self._forced_arrays_np()
+        if self.backend == "native":
+            self._native_check(for_tick=True)
+            self._run_ticks_native(fs, fv[None], fu[None])
+            return None
         us = self._unsteady_forced()
         if us is not None:
             # the automaton's 4-state codes supersede the tick's raw
@@ -1028,10 +1040,14 @@ class DigitalEngine:
         ``forced_sig``: int32[S] signal indices (fixed across ticks);
         ``forced_v``/``forced_u``: uint32[T, S] per-tick bit planes.
         Returns the per-tick (sv, su) history [T, n_signals] uint32
-        numpy; the final state is committed."""
+        numpy; the final state is committed.  With ``backend="native"``
+        the host sweep engine runs the T ticks in one call."""
         if self.ir.vmods:
             raise ValueError("run_ticks: VERILOG_MODULE devices need "
                              "per-tick host interaction; use tick()")
+        if self.backend == "native":
+            self._native_check(for_tick=False)
+            return self._run_ticks_native(forced_sig, forced_v, forced_u)
         if turbo.eligible(self.ir):
             return self._run_ticks_turbo(forced_sig, forced_v, forced_u)
         FV = np.asarray(forced_v, np.uint32)[None]
@@ -1039,6 +1055,42 @@ class DigitalEngine:
         hv, hu, last = self.run_levels(forced_sig, FV, FU, analog_v)
         self.commit(*last)
         return _u32(hv[0]), _u32(hu[0])
+
+    def _native_check(self, for_tick: bool) -> None:
+        """Raise unless the host sweep engine computes this design: pure
+        gates and flip-flops, no VERILOG_MODULE, no analog sampling, and,
+        for :meth:`tick`, which returns the drives, no analog drives."""
+        ir = self.ir
+        why = None
+        if ir.vmods:
+            why = "it has VERILOG_MODULE devices"
+        elif ir.samp_sig.size:
+            why = "it samples analog nets"
+        elif for_tick and ir.drv_sig.size:
+            why = "it drives analog nets"
+        elif not turbo.eligible(ir, allow_cyclic=True):
+            why = ("turbo.eligible(ir, allow_cyclic=True) is false (a "
+                   "device other than gates, INPUT and DFF / DFF_ARSTN)")
+        if why is not None:
+            raise ValueError(f"backend='native' cannot run this design: "
+                             f"{why}")
+
+    def _run_ticks_native(self, forced_sig, FV, FU):
+        """T ticks on the host sweep engine (digital/native_run.py), one
+        library call; commits the final state, returns (HV, HU) uint32
+        (T, n_signals)."""
+        from . import native_run
+        if self._native_plan is None:
+            self._native_plan = native_run.NativePlan(self.ir)
+        plan = self._native_plan
+        st = plan.pack_state(self.sv, self.su, self.seq_state)
+        HV, HU = plan.run(st, np.asarray(forced_sig, np.int32),
+                          np.asarray(FV, np.uint32), np.asarray(FU, np.uint32))
+        self.sv = (st[:plan.S] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        self.su = (st[:plan.S] >> np.uint64(32)).astype(np.uint32)
+        self.seq_state = plan.commit_seq_state(st, self.seq_state)
+        self._writeback()
+        return HV, HU
 
     def plan(self, forced_sig) -> turbo.TurboPlan:
         fs = np.asarray(forced_sig, np.int32)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import F64
+from ..digital import check_backend
 from ..models.base import DeviceClass, StampCtx
 from ..netlist.netlist import Netlist, Node
 from ..ops.linsolve import dense_solve
@@ -109,12 +110,15 @@ class Circuit:
     def __init__(self, netlist: Optional[Netlist] = None,
                  env: Optional[Environment] = None, dtype=F64,
                  solver: str = "auto", sparse_threshold: int = 2048,
-                 mesh=None, gmin_steps: int = 8, device="cuda"):
+                 mesh=None, gmin_steps: int = 8, device="cuda",
+                 digital_backend: str = "device"):
         """``solver``: 'auto' | 'dense' | 'sparse' ('auto' takes the sparse
         route at n >= ``sparse_threshold``, the reference's CUDA node
         threshold policy, circuit.h:115-121).  ``gmin_steps``: the
         gmin-stepping ladder's length on an OP/DC Newton failure (0
-        disables).  ``device``: where every analysis runs."""
+        disables).  ``device``: where every analysis runs.
+        ``digital_backend``: the digital engine's ``backend`` ("device"
+        or "native", the host sweep engine; see ``DigitalEngine``)."""
         if mesh is not None:
             raise _todo("Circuit(mesh=...)", "14")
         if solver not in ("auto", "dense", "sparse"):
@@ -126,6 +130,7 @@ class Circuit:
         self.gmin_steps = int(gmin_steps)
         self.dtype = dtype
         self.device = torch.device(device)
+        self.digital_backend = check_backend(digital_backend)
         self.at = AnalyzeType.OP
         self.ac = ACSettings()
         self.tr = TRSettings()
@@ -160,7 +165,8 @@ class Circuit:
         if any(m.mdef.device_class == DeviceClass.DIGITAL
                for m in self.nl.live_models()):
             from ..digital.engine import DigitalEngine
-            self._digital = DigitalEngine(self.nl, self.device)
+            self._digital = DigitalEngine(self.nl, self.device,
+                                          self.digital_backend)
             n_drive = self._digital.n_drive_slots
         ir = lower_analog(self.nl, max_drive_slots=n_drive)
         ir.version = self.nl.version

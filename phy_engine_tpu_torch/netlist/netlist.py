@@ -1,6 +1,7 @@
 """Host-side netlist data structures (port of
-``phy_engine_tpu/netlist/netlist.py``; its snapshot, restore and deep
-copy come with the persistence layer, ROADMAP.md queue 1 item 15).
+``phy_engine_tpu/netlist/netlist.py``, with its identity-preserving
+snapshot / restore, which synthesis at -O2 and above rolls back with,
+and its deep copy).
 
 Mirrors the reference's netlist (``include/phy_engine/netlist/
 netlist.h``): model instances with pins and branch unknowns, nets with
@@ -154,3 +155,63 @@ class Netlist:
 
     def node_count(self) -> int:
         return len(self.nodes)
+
+    # -- in-place state snapshot/rollback ------------------------------
+    # Identity-preserving undo for optimization tiers: unlike copy(),
+    # outside references to surviving models/nodes (port nets, INPUT /
+    # OUTPUT devices held by the synthesizer) stay valid across a
+    # restore.  Models/nodes created after the snapshot simply drop out
+    # of the lists and are garbage-collected.
+    def state_save(self):
+        mstate = [(m, m.enabled, dict(m.params),
+                   [p.node for p in m.pins])
+                  for m in self.models if m is not None]
+        nstate = [(n, list(n.pins), n.num_of_analog_node)
+                  for n in self.all_nodes()]
+        return (list(self.models), list(self.nodes), mstate, nstate)
+
+    def state_restore(self, snap) -> None:
+        # the snapshot's param dicts become the live models' own, so a
+        # snapshot is restored at most once around further edits
+        models, nodes, mstate, nstate = snap
+        self.models[:] = models
+        self.nodes[:] = nodes
+        for m, enabled, params, pnodes in mstate:
+            m.enabled = enabled
+            m.params = params
+            for p, nd in zip(m.pins, pnodes):
+                p.node = nd
+        for n, pins, naa in nstate:
+            n.pins[:] = pins
+            n.num_of_analog_node = naa
+        self.touch()
+
+    # -- deep copy (reference: netlist copy ctor w/ node remap,
+    #    netlist.h:351-536) ---------------------------------------------
+    def copy(self) -> "Netlist":
+        import copy as _copy
+        new = Netlist()
+        node_map: Dict[int, Node] = {id(self.ground_node): new.ground_node}
+        for n in self.nodes:
+            nn = Node(name=n.name)
+            nn.voltage = n.voltage
+            nn.digital = n.digital
+            nn.num_of_analog_node = n.num_of_analog_node
+            node_map[id(n)] = nn
+            new.nodes.append(nn)
+        for m in self.models:
+            if m is None:
+                new.models.append(None)
+                continue
+            nm = ModelInstance(m.mdef, _copy.deepcopy(m.params), m.name)
+            nm.describe = m.describe
+            nm.enabled = m.enabled
+            nm.runtime = _copy.deepcopy(m.runtime)
+            for old_pin, new_pin in zip(m.pins, nm.pins):
+                if old_pin.node is not None:
+                    tgt = node_map[id(old_pin.node)]
+                    new_pin.node = tgt
+                    tgt.pins.append(new_pin)
+            new.models.append(nm)
+        new.version = self.version
+        return new

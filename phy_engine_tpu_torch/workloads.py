@@ -25,12 +25,16 @@ transient from that seed (Vth0 jitter 0.02 on both families).
 
 ``build_rv32`` synthesizes the in-repo RV32I-subset core
 (``data/pe_rv32.v``: the ``pe_rv32`` template with the fib-checksum ROM,
-whose ``result`` bus ends at ``RV32_EXPECT``) to gates at ``-O1``, and
-``rv32_run`` clocks it through ``Circuit.digital_run`` /
+whose ``result`` bus ends at ``RV32_EXPECT``) to gates at ``-O1`` (or any
+level), and ``rv32_run`` clocks it through ``Circuit.digital_run`` /
 ``digital_run_batch`` with ``bench_digital.py``'s schedule.
 ``rv32_levels`` runs the same core through the levelled tick (the oracle
 the chip smoke holds against the turbo kernel).  ``FP16_ADD_SRC`` is the
-combinational half-precision adder of the tests.
+combinational half-precision adder of the tests.  ``synth_counts``
+synthesizes either design at a level and counts its live devices by type
+and its logic gates (QOR.md's ``count_logic_gates``); ``RV32_O2_COUNTS``
+holds what the JAX package gives for RV32 at -O2, which the chip smoke
+checks.
 
 ``sar_adc`` / ``sar_convert`` are the port's copy of tests/test_adc.py: a
 ``bits``-bit SAR ADC, synthesized SAR logic driving an R-2R DAC through
@@ -42,6 +46,7 @@ tests' design, 16 the reference's test/0028.16b_adc.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, NamedTuple
 
@@ -260,11 +265,12 @@ FP16_ADD_SRC = (_DATA / "fp16_add.v").read_text()
 
 
 def synth_top(src: str, top: str, device="cuda", opt_level: int = 1,
-              inputs=None):
+              inputs=None, binary: bool = False):
     """Compile ``src``, elaborate module ``top`` and synthesize it into a
     fresh :class:`Circuit` on ``device``.  One net per port bit; every
     bit of the ports named in ``inputs`` (all input ports when None) is
-    driven by its own INPUT device at logic 0.
+    driven by its own INPUT device at logic 0.  ``binary``: the
+    ``assume_binary_inputs`` relaxation (-O3 and above).
 
     Returns (circuit, {port: [INPUT per bit]}, {port: [net per bit]},
     SynthReport)."""
@@ -289,8 +295,64 @@ def synth_top(src: str, top: str, device="cuda", opt_level: int = 1,
             netops.add_to_node(nl, m, 0, n)
             ins[name].append(m)
     report = synthesize_to_netlist(nl, design, inst, pn,
-                                   SynthOptions(opt_level=opt_level))
+                                   SynthOptions(opt_level=opt_level,
+                                                assume_binary_inputs=binary))
     return c, ins, pn, report
+
+
+# QOR.md's logic-gate metric (the reference's count_logic_gates): pure
+# logic ops; macros, flip-flops and IO are free.  The O2+ driver counts
+# the same ops through a tuple local to verilog/optimize.py, which stays
+# the JAX package's module byte for byte
+LOGIC_OPS = ("AND", "OR", "XOR", "XNOR", "NOT", "NAND", "NOR", "IMP", "NIMP",
+             "YES")
+
+# design -> (source, top module, ports driven by INPUT devices)
+SYNTH_DESIGNS = {
+    "rv32": (RV32_SRC, "pe_rv32", ("clk", "rst_n")),
+    "fp16_add": (FP16_ADD_SRC, "fp16_add", ("a", "b")),
+}
+
+# synth_counts("rv32", 2)'s (per-type counts, logic gates) as the JAX
+# package gives them, every live device counted (the INPUT devices on the
+# driven ports too); tests/test_torch_synth_rv32.py holds both packages
+# to them
+RV32_O2_COUNTS = ({
+    "AND": 13962, "DFF_ARSTN": 640, "FULL_ADDER": 251, "HALF_ADDER": 39,
+    "INPUT": 18, "NAND": 2, "NON_IMPLICATION": 37, "NOT": 192,
+    "OR": 6767, "XNOR": 1, "XOR": 31}, 20992)
+
+
+def device_counts(nl: Netlist):
+    """(live devices by ``mdef.name``, logic gates) of a netlist."""
+    live = nl.live_models()
+    counts = Counter(m.mdef.name for m in live)
+    return (dict(sorted(counts.items())),
+            sum(1 for m in live if m.mdef.digital_op in LOGIC_OPS))
+
+
+class Synth(NamedTuple):
+    circuit: Circuit
+    ins: Dict[str, List]        # port -> INPUT device per bit
+    nets: Dict[str, List]       # port -> net per bit, LSB first
+    report: object              # SynthReport
+    counts: Dict[str, int]      # live devices by type
+    logic_gates: int
+    seconds: float              # synthesis wall time on the host
+
+
+def synth_counts(design: str, opt_level: int = 1, binary: bool = False,
+                 device="cuda") -> Synth:
+    """``design`` ("rv32" or "fp16_add", see ``SYNTH_DESIGNS``)
+    synthesized at ``opt_level`` into a Circuit on ``device``, with its
+    device counts."""
+    src, top, inputs = SYNTH_DESIGNS[design]
+    t0 = time.perf_counter()
+    c, ins, pn, rep = synth_top(src, top, device, opt_level, inputs=inputs,
+                                binary=binary)
+    sec = time.perf_counter() - t0
+    counts, logic = device_counts(c.nl)
+    return Synth(c, ins, pn, rep, counts, logic, sec)
 
 
 class Rv32(NamedTuple):
@@ -304,10 +366,14 @@ class Rv32(NamedTuple):
 
 def build_rv32(device="cuda", opt_level: int = 1) -> Rv32:
     """The RV32 core synthesized at ``opt_level`` into a Circuit."""
-    c, ins, pn, rep = synth_top(RV32_SRC, "pe_rv32", device, opt_level,
-                                inputs=("clk", "rst_n"))
-    return Rv32(c, ins["clk"][0], ins["rst_n"][0], pn,
-                rep.gate_count + rep.ff_count, RV32_EXPECT)
+    return rv32_of(synth_counts("rv32", opt_level, device=device))
+
+
+def rv32_of(syn: "Synth") -> Rv32:
+    """The RV32 core of a ``synth_counts("rv32", ...)`` result."""
+    rep = syn.report
+    return Rv32(syn.circuit, syn.ins["clk"][0], syn.ins["rst_n"][0],
+                syn.nets, rep.gate_count + rep.ff_count, RV32_EXPECT)
 
 
 def rv32_schedules(d: Rv32, cycles: int):

@@ -5,7 +5,9 @@ card, the analog Circuit driver's analyses on the card against the
 CPU, and BSIM3 (its hooks, the chain's rescue ladder, noise and
 sensitivity) on the card against the CPU, and the levelled digital tick,
 mixed signal (the SAR ADC, the Tsu/Th automata, VERILOG_MODULE) and the
-flash engine on the card against the CPU and the turbo kernel.  Marked
+flash engine on the card against the CPU and the turbo kernel, and RV32
+synthesized at -O2 through the turbo kernel against the levelled tick and
+the host sweep engine.  Marked
 ``cuda``; each skips on a host without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs
 on a machine that has only torch:
@@ -406,6 +408,52 @@ def test_turbo_wrapper_raises_on_a_schedule_that_fails_its_checks(cuda):
 @pytest.mark.cuda
 def test_rv32_digital_run_on_the_card(cuda):
     d = workloads.build_rv32(device=cuda)
+    res, done = workloads.rv32_run(1, 200, design=d)
+    assert int(res[0]) == d.expect == 4264 and int(done[0]) == 1
+    res, done = workloads.rv32_run(4, 200, design=d)
+    assert (res == 4264).all() and (done == 1).all()
+
+
+@pytest.fixture(scope="module")
+def rv32_o2():
+    return workloads.build_rv32(device="cuda", opt_level=2)
+
+
+@pytest.mark.cuda
+def test_rv32_o2_turbo_on_the_card_matches_levels_on_the_cpu(cuda, rv32_o2):
+    """RV32 synthesized at -O2, 24 ticks from power-up: the turbo kernel
+    on the card against the levelled tick on the CPU, every signal."""
+    from phy_engine_tpu_torch.digital.engine import DigitalEngine
+    d = rv32_o2
+    reset, body = workloads.rv32_schedules(d, 10)
+    eng, fs, FV, FU = d.circuit._compile_schedule(reset + body)
+    eng.reset_state()
+    before = turbo.run_turbo.launches
+    tv, tu = eng.run_ticks(fs, FV, FU)
+    assert turbo.run_turbo.launches == before + 1
+    cpu = DigitalEngine(d.circuit.nl, "cpu")
+    lv, lu, _last = cpu.run_levels(fs, FV[None], FU[None])
+    np.testing.assert_array_equal(tv, lv[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(tu, lu[0].numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_rv32_o2_native_matches_turbo_on_the_card(cuda, rv32_o2):
+    """RV32 at -O2, reset plus 200 clocks: the host sweep engine's full
+    history equals the turbo kernel's on the card, and both end at
+    ``result`` 4264; 4 instances through digital_run_batch too."""
+    from phy_engine_tpu_torch.digital.engine import DigitalEngine
+    d = rv32_o2
+    reset, body = workloads.rv32_schedules(d, 200)
+    eng, fs, FV, FU = d.circuit._compile_schedule(reset + body)
+    eng.reset_state()
+    tv, tu = eng.run_ticks(fs, FV, FU)
+    nat = DigitalEngine(d.circuit.nl, cuda, backend="native")
+    before = turbo.run_turbo.launches
+    nv, nu = nat.run_ticks(fs, FV, FU)
+    assert turbo.run_turbo.launches == before
+    np.testing.assert_array_equal(nv, tv)
+    np.testing.assert_array_equal(nu, tu)
     res, done = workloads.rv32_run(1, 200, design=d)
     assert int(res[0]) == d.expect == 4264 and int(done[0]) == 1
     res, done = workloads.rv32_run(4, 200, design=d)

@@ -1,8 +1,11 @@
-"""Guards of the PyTorch port: it never pulls in JAX (or triton), its
-kernel loader never hands back a stand-in, and ``chip_smoke.py`` fails
-loudly — with no success line — where there is no card or no repo."""
+"""Guards of the PyTorch port: it never pulls in JAX (or triton) and never
+points into the JAX package's directory, its kernel loader never hands
+back a stand-in, and ``chip_smoke.py`` fails loudly — with no success
+line — where there is no card or no repo."""
 
+import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -39,7 +42,9 @@ def test_port_imports_no_jax():
         "          'parallel.batch', 'ops.linsolve', 'engine.noise',\n"
         "          'engine.sens', 'models.bsim3', 'models.dual',\n"
         "          'digital.engine', 'digital.flash', 'digital.ir',\n"
-        "          'models.verilog_module', 'ops.sparse', 'ops.tridiag'):\n"
+        "          'models.verilog_module', 'ops.sparse', 'ops.tridiag',\n"
+        "          'verilog.opt_graph', 'verilog.opt_map', 'native',\n"
+        "          'digital.native_run'):\n"
         "    assert 'phy_engine_tpu_torch.' + m in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'phy_engine_tpu', 'triton'))\n"
@@ -84,3 +89,62 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build()
     assert not (tmp_path / "build").exists() or not any(
         (tmp_path / "build").iterdir())
+
+
+_JAX_DIR = re.compile(r"(?<![\w.])phy_engine_tpu(?:[/\\]|$)")
+
+
+def _code_strings(tree):
+    """The string constants of a module's code (docstrings excepted)."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_port_names_no_path_in_the_jax_package(monkeypatch, tmp_path):
+    """No file of the port points into ``phy_engine_tpu/``: no string its
+    code uses names that directory, no C++ / CUDA source includes from
+    it, and the sources the loaders compile (the kernels of ``ops/csrc``
+    and the host libraries of ``native``) are the port's own files."""
+    pkg = ROOT / "phy_engine_tpu_torch"
+    bad = []
+    for path in sorted(pkg.rglob("*.py")):
+        for s in _code_strings(ast.parse(path.read_text())):
+            if _JAX_DIR.search(s):
+                bad.append(f"{path.relative_to(ROOT)}: {s!r}")
+    for path in sorted(p for ext in ("*.cpp", "*.cu", "*.h", "*.cuh")
+                       for p in pkg.rglob(ext)):
+        for line in path.read_text().splitlines():
+            if line.lstrip().startswith("#include") and "phy_engine_tpu" in line:
+                bad.append(f"{path.relative_to(ROOT)}: {line.strip()}")
+    assert not bad, bad
+
+    from phy_engine_tpu_torch import native
+    srcs = [_build.CSRC / name for name in _build.SOURCES]
+    srcs += [native.SRC_DIR / src for src, _flags in native.LIBS.values()]
+    for src in srcs:
+        assert src.resolve().is_relative_to(pkg), src
+    # what the host build hands g++: the port's sources, into build/
+    cmds = []
+    real_run = subprocess.run
+
+    def run(cmd, *a, **k):
+        cmds.append(cmd)
+        return real_run(cmd, *a, **k)
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native.subprocess, "run", run)
+    for name in native.LIBS:
+        assert native.build(name).parent == tmp_path
+    assert len(cmds) == len(native.LIBS)
+    for cmd in cmds:
+        cpp = [Path(a) for a in cmd if a.endswith(".cpp")]
+        assert cpp and all(p.resolve().is_relative_to(pkg) for p in cpp), cmd

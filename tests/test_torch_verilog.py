@@ -24,7 +24,6 @@ from phy_engine_tpu.verilog.synth import (SynthOptions as JSynthOptions,
 
 from phy_engine_tpu_torch import workloads
 from phy_engine_tpu_torch.verilog import compile_source, build_design, elaborate, find_module
-from phy_engine_tpu_torch.verilog.synth import SynthOptions, synthesize_to_netlist
 
 from test_fp16 import FP16_ADD_SRC
 from test_riscv import _cpu_source
@@ -123,19 +122,6 @@ def test_front_end_exports():
     inst = elaborate(design, topm)
     assert list(topm.ports) == ["clk", "rst_n", "d", "q"]
     assert inst.signals["q"].width == 2
-
-
-def test_opt_level_2_raises():
-    from phy_engine_tpu_torch.engine.circuit import Circuit
-    from phy_engine_tpu_torch.netlist import operations as netops
-    design = build_design(compile_source(FSM_SRC))
-    topm = find_module(design, "t")
-    inst = elaborate(design, topm)
-    nl = Circuit(device="cpu").nl
-    pn = {p: [netops.create_node(nl) for _ in range(inst.signals[p].width)]
-          for p in topm.ports}
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        synthesize_to_netlist(nl, design, inst, pn, SynthOptions(opt_level=2))
 
 
 def test_logic_tables_match_jax():

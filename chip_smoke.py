@@ -211,6 +211,40 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               lanes of random binary operands (numpy default_rng(20)),
               one tick through the turbo kernel (run_ticks_batched with a
               watch list): the -O3 outputs equal the -O1 outputs, no X.
+21. surfaces and persistence (runs after 20, before 16) — (a)
+              cli.verilog2penl on pe_rv32 at -O2 (--report) on the host,
+              io.load of the .penl onto the card: its live devices equal
+              phase 20's -O2 core type by type, plus 33 OUTPUT devices;
+              workloads.rv32_of_penl finds clk, rst_n and the ports by
+              name; Circuit.digital_run over the 404-tick schedule
+              launches the turbo kernel (these launches join its count in
+              the kernels line): result 4264, done 1, and every net's V
+              and U planes at every tick bit-identical to phase 20's -O2
+              turbo history.  (b) The 255-stage ladder from element codes
+              (workloads.diode_ladder_elements, api.Circuit on the card):
+              10 TR steps of 50 ns uninterrupted against 5 steps, a
+              runtime_only io.save, io.load into a fresh circuit and 5
+              more, within 1e-6 of max|v|; a full save loads back to the
+              same IR.  (c) The C ABI: native/pe_capi.c built by cc into
+              build/ and loaded with ctypes; create_circuit of the same
+              element stream, circuit_set_tr, circuit_analyze and
+              circuit_sample within 1e-12 of (b)'s api.Circuit on the card
+              and 1e-6 of the CPU; 100 set_model_digital + digital_clk
+              calls of a 2-input AND through the C ABI (the host sweep
+              engine, which the glue picks for pure gate circuits) timed
+              against api.Circuit on the card's levelled tick; a
+              verilog_runtime_* round trip (a counter, q = 5).  (d)
+              cli.verilog2plsav on fp16_add at -O1 (a .sav with
+              auto-layout: 2,427 elements, 60 Logic Inputs with 28
+              constants, 16 Logic Outputs) loaded as an Experiment,
+              experiment_to_circuit on the card; the operand and output
+              bits mapped by the order of the INPUT / OUTPUT devices of
+              cli.verilog2penl's netlist of the same design and level
+              (the scene has no port names, and its constants are exported
+              as switches, set here from that netlist); 8 binary operand
+              pairs through sync_inputs, digital_clk (the levelled tick)
+              and write_back, every output equal to phase 20's -O1 turbo
+              outputs for the same words.
 
 16. sparse Circuit — the Circuit driver's sparse route (COO assembly and
               the f64 Jacobi BiCGStab of ops/sparse.py, torch ops) on
@@ -1547,12 +1581,21 @@ def fp16_outputs(dev, syn, words):
     return v[:, 0], u[:, 0], turbo.run_turbo.launches - before
 
 
+def node_planes(eng, nl, hv, hu):
+    """The (T, n_nets) V and U planes of every net of ``nl`` (in
+    ``nl.nodes`` order) in an engine's (T, S) history."""
+    sigs = [eng.ir.node_sig[id(n)] for n in nl.nodes]
+    return np.asarray(hv)[:, sigs], np.asarray(hu)[:, sigs]
+
+
 def phase20_synth(dev, smi, rv32, o1, cycles=200):
     """Synthesis and the host sweep engine (see the module docstring,
     phase 20).  ``rv32``: phase 6's -O1 core; ``o1``: phase 7's wall and
-    kernel ms.  Returns the turbo launches of (b), the main path's, and
-    the kernel's largest difference from its plain version on the -O2
-    core."""
+    kernel ms.  Returns the turbo launches of (b), the main path's, the
+    kernel's largest difference from its plain version on the -O2 core,
+    and for phase 21 the -O2 core's 404-tick turbo history by net
+    (``node_planes``), the fp16 operand words of (d) and the -O1 adder's
+    outputs."""
     from phy_engine_tpu_torch.digital.engine import DigitalEngine
     ticks = 4 + 2 * cycles
     # (a) synthesis at -O2
@@ -1629,6 +1672,8 @@ def phase20_synth(dev, smi, rv32, o1, cycles=200):
         check(np.array_equal(nv, tv) and np.array_equal(nu, tu),
               f"the host sweep engine's RV32 {level} history != the turbo "
               "kernel's")
+        if level == "-O2":
+            o2_planes = node_planes(eng, d.circuit.nl, tv, tu)
         say(20, f"host sweep engine (native/pe_digital.cpp), RV32 {level} "
             f"{ticks} ticks from reset: full ({ticks}, {nv.shape[1]}) "
             f"history bit-identical to the turbo kernel's on the card; host "
@@ -1653,7 +1698,354 @@ def phase20_synth(dev, smi, rv32, o1, cycles=200):
         f"{s3.seconds:.1f} s on the host) against -O1 ({s1.logic_gates} "
         f"logic gates): 4 x 32 lanes of random binary operands through the "
         f"turbo kernel, every output bit equal, none X")
-    return n1 + n128, err
+    return n1 + n128, err, dict(o2_planes=o2_planes, fp16_words=words,
+                                fp16_y=v1)
+
+
+# ---------------------------------------------------------------------------
+# the user surfaces and persistence (phase 21)
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+DATA = ROOT / "phy_engine_tpu_torch" / "data"
+LADDER_STEPS = 10          # (b) and (c): TR steps of workloads.DT
+CLK_CALLS = 100            # (c): digital_clk calls timed per route
+FP16_PAIRS = 8             # (d): operand pairs through the scene
+
+
+def capi_lib():
+    """The port's C ABI library (native/pe_capi.c) built into build/,
+    loaded into this interpreter and initialized, with the argument
+    types phase 21 calls it with."""
+    import ctypes as C
+    from phy_engine_tpu_torch import native
+    lib = C.CDLL(str(native.build_capi()))
+    vp, sz, szp = C.c_void_p, C.c_size_t, C.POINTER(C.c_size_t)
+    for name, args, res in (
+            ("phy_engine_init", [C.c_char_p], C.c_int),
+            ("phy_engine_last_error", [], C.c_char_p),
+            ("create_circuit", [C.POINTER(C.c_int), sz, C.POINTER(C.c_int),
+                                sz, C.POINTER(C.c_double), C.POINTER(szp),
+                                C.POINTER(szp), szp], vp),
+            ("destroy_circuit", [vp, szp, szp], None),
+            ("circuit_set_analyze_type", [vp, C.c_uint32], C.c_int),
+            ("circuit_set_tr", [vp, C.c_double, C.c_double], C.c_int),
+            ("circuit_analyze", [vp], C.c_int),
+            ("circuit_digital_clk", [vp], C.c_int),
+            ("circuit_set_model_digital", [vp, sz, sz, sz, C.c_uint8],
+             C.c_int),
+            ("circuit_sample_layout", [vp, szp, szp, sz, szp, szp, szp],
+             C.c_int),
+            ("circuit_sample_digital_state_u8",
+             [vp, szp, szp, sz, C.POINTER(C.c_double), szp,
+              C.POINTER(C.c_double), szp, C.POINTER(C.c_uint8), szp],
+             C.c_int),
+            ("verilog_runtime_create", [C.c_char_p, sz, C.c_char_p, sz, vp,
+                                        vp, sz], vp),
+            ("verilog_runtime_tick", [vp], C.c_int),
+            ("verilog_runtime_port_count", [vp], sz),
+            ("verilog_runtime_copy_port_name", [vp, sz, C.c_char_p, sz],
+             C.c_int),
+            ("verilog_runtime_get_port_value", [vp, sz], C.c_uint8),
+            ("verilog_runtime_set_port_value", [vp, sz, C.c_uint8], C.c_int),
+            ("verilog_runtime_destroy", [vp], None)):
+        f = getattr(lib, name)
+        f.argtypes, f.restype = args, res
+    check(lib.phy_engine_init(str(ROOT).encode()) == 0,
+          f"phy_engine_init: {lib.phy_engine_last_error()}")
+    return lib
+
+
+def capi_create(lib, codes, wires, props):
+    """create_circuit; returns (handle, vec_pos, chunk_pos, components)."""
+    import ctypes as C
+    n = len(codes)
+    vec, chunk = C.POINTER(C.c_size_t)(), C.POINTER(C.c_size_t)()
+    comp = C.c_size_t()
+    h = lib.create_circuit((C.c_int * n)(*codes), n,
+                           (C.c_int * len(wires))(*wires), len(wires),
+                           (C.c_double * max(1, len(props)))(*props),
+                           C.byref(vec), C.byref(chunk), C.byref(comp))
+    check(bool(h), f"create_circuit: {lib.phy_engine_last_error()}")
+    return h, vec, chunk, comp.value
+
+
+def capi_sample(lib, h, vec, chunk, n):
+    """(pin voltages, 4-state codes) of every component, in order."""
+    import ctypes as C
+    ords = [(C.c_size_t * (n + 1))() for _ in range(3)]
+    check(lib.circuit_sample_layout(h, vec, chunk, n, *ords) == 0,
+          "circuit_sample_layout failed")
+    v, c, d = (o[n] for o in ords)
+    volts = (C.c_double * max(1, v))()
+    curs = (C.c_double * max(1, c))()
+    digs = (C.c_uint8 * max(1, d))()
+    check(lib.circuit_sample_digital_state_u8(
+        h, vec, chunk, n, volts, ords[0], curs, ords[1], digs, ords[2]) == 0,
+        "circuit_sample_digital_state_u8 failed")
+    return np.array(volts[:v]), list(digs[:d])
+
+
+def ladder_circuit(device):
+    """workloads.diode_ladder_elements as an api.Circuit on ``device``."""
+    from phy_engine_tpu_torch import api
+    codes, wires, props = workloads.diode_ladder_elements()
+    els, k = [], 0
+    for code in codes:
+        n = api.PROPERTY_ARITY[code]
+        els.append(api.Element(code, tuple(props[k:k + n])))
+        k += n
+    return api.Circuit(els, [api.Wire(*wires[i:i + 4])
+                             for i in range(0, len(wires), 4)],
+                       device=device)
+
+
+def ladder_tr(c, steps):
+    """``steps`` more TR steps of workloads.DT on an api.Circuit."""
+    c.set_analyze_type(AnalyzeType.TR.value)
+    c.set_tr(workloads.DT, steps * workloads.DT)
+    c.analyze()                      # raises PhyEngineError on a failure
+    return c
+
+
+def pin_volts(c):
+    return np.array([v for comp in c.sample().components
+                     for v in comp.pin_voltages])
+
+
+def rel_to(a, ref):
+    return float(np.abs(np.asarray(a) - ref).max() / np.abs(ref).max())
+
+
+def same_ir(a, b):
+    """Two lowered analog IRs are equal, array for array."""
+    if (a.n_unknowns, a.n_nodes, a.n_branches) != (b.n_unknowns, b.n_nodes,
+                                                   b.n_branches):
+        return False
+    return all(fa.mdef.id_name == fb.mdef.id_name and all(
+        np.array_equal(getattr(fa, k), getattr(fb, k))
+        for k in ("pin_nodes", "br_idx", "a_rows", "a_cols", "z_rows"))
+        for fa, fb in zip(a.families, b.families)) and \
+        len(a.families) == len(b.families)
+
+
+def phase21_surfaces(dev, smi, p20, cycles=200):
+    """The user surfaces and persistence (see the module docstring, phase
+    21).  ``p20``: phase 20's -O2 history by net and fp16 data.  Returns
+    the turbo launches of (a)."""
+    import ctypes
+    import tempfile
+    from phy_engine_tpu_torch import api, io as tio
+    from phy_engine_tpu_torch.cli.verilog2penl import main as v2penl
+    from phy_engine_tpu_torch.cli.verilog2plsav import main as v2plsav
+    from phy_engine_tpu_torch.io import plsav
+    ticks = 4 + 2 * cycles
+    tmp = tempfile.TemporaryDirectory()
+    td = Path(tmp.name)
+
+    # (a) verilog2penl -> .penl -> io.load -> digital_run on the card
+    t0 = time.perf_counter()
+    penl = td / "rv32_o2.penl"
+    check(v2penl([str(penl), str(DATA / "pe_rv32.v"), "--top", "pe_rv32",
+                  "--synth", "-O2", "--report"]) == 0,
+          "verilog2penl failed on pe_rv32 -O2")
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = tio.load(str(penl), device=dev)
+    load_s = time.perf_counter() - t0
+    counts, logic = workloads.device_counts(c.nl)
+    outputs = counts.pop("OUTPUT", 0)
+    check((counts, logic) == workloads.RV32_O2_COUNTS and outputs == 33,
+          f"the loaded -O2 core: {counts}, {logic} logic gates, {outputs} "
+          f"OUTPUT devices; expected phase 20's and 33")
+    d = workloads.rv32_of_penl(c)
+    reset, body = workloads.rv32_schedules(d, cycles)
+    before = turbo.run_turbo.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = c.digital_run(reset + body)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_a = turbo.run_turbo.launches - before
+    res = int(tr.bus_values(d.ports["result"])[-1])
+    done = int(tr.node_codes(d.ports["done"][0])[-1])
+    hv, hu = node_planes(c.digital_engine(), c.nl, tr.sv, tr.su)
+    ov, ou = p20["o2_planes"]
+    check(n_a > 0, "the loaded -O2 core never launched the turbo kernel")
+    check(res == workloads.RV32_EXPECT and done == 1,
+          f"loaded RV32 -O2: result {res} done {done}")
+    check(hv.shape == ov.shape and np.array_equal(hv, ov)
+          and np.array_equal(hu, ou),
+          "the loaded -O2 core's history != phase 20's turbo history")
+    say(21, f"(a) verilog2penl pe_rv32 -O2 --report: {cli_s:.1f} s on the "
+        f"host, {penl.stat().st_size / 2**20:.1f} MiB; io.load on the card "
+        f"{load_s:.2f} s: live devices equal phase 20's -O2 core type by "
+        f"type plus {outputs} OUTPUT; Circuit.digital_run {ticks} ticks "
+        f"(plan build included) {run_s * 1e3:.1f} ms on {smi}: result "
+        f"{res}, done {done}, every net of every tick ({hv.shape[0]} x "
+        f"{hv.shape[1]}, V and U planes) bit-identical to phase 20's turbo "
+        f"history; turbo launches {n_a}")
+
+    # (b) a checkpoint on the card
+    t0 = time.perf_counter()
+    full = ladder_tr(ladder_circuit(dev), LADDER_STEPS)
+    ref = pin_volts(full)
+    half = ladder_tr(ladder_circuit(dev), LADDER_STEPS // 2)
+    ck = td / "ladder_ckpt.penl"
+    tio.save(str(ck), half.core, tio.SaveOptions(mode="runtime_only"))
+    resumed = ladder_circuit(dev)
+    tio.load(str(ck), circuit=resumed.core)
+    check(abs(resumed.core.tr_duration - half.core.tr_duration) == 0,
+          "the checkpoint lost the transient clock")
+    rel_b = rel_to(pin_volts(ladder_tr(resumed, LADDER_STEPS // 2)), ref)
+    check(rel_b <= TRACE_TOL, f"resumed ladder vs uninterrupted: {rel_b:.3e}"
+          f" > {TRACE_TOL}")
+    fp = td / "ladder_full.penl"
+    tio.save(str(fp), full.core)
+    back = tio.load(str(fp), device=dev)
+    check(same_ir(back.prepare(), full.core.prepare()),
+          "the full save of the ladder did not load back to the same IR")
+    say(21, f"(b) 255-stage ladder (256 unknowns) from element codes on the "
+        f"card: {LADDER_STEPS} TR steps uninterrupted against "
+        f"{LADDER_STEPS // 2} + runtime_only checkpoint ({ck.stat().st_size}"
+        f" B) + io.load into a fresh circuit + {LADDER_STEPS // 2}: rel err "
+        f"{rel_b:.3e}; the full save ({fp.stat().st_size} B) loads back to "
+        f"the same IR; {time.perf_counter() - t0:.1f} s")
+
+    # (c) the C ABI on the card
+    t0 = time.perf_counter()
+    lib = capi_lib()
+    build_s = time.perf_counter() - t0
+    h, vec, chunk, n = capi_create(lib, *workloads.diode_ladder_elements())
+    check(lib.circuit_set_analyze_type(h, AnalyzeType.TR.value) == 0 and
+          lib.circuit_set_tr(h, workloads.DT,
+                             LADDER_STEPS * workloads.DT) == 0,
+          "circuit_set_* failed")
+    check(lib.circuit_analyze(h) == 0,
+          f"circuit_analyze: {lib.phy_engine_last_error()}")
+    volts, _digs = capi_sample(lib, h, vec, chunk, n)
+    lib.destroy_circuit(h, vec, chunk)
+    rel_card = rel_to(volts, ref)
+    rel_cpu = rel_to(volts, pin_volts(ladder_tr(ladder_circuit("cpu"),
+                                                LADDER_STEPS)))
+    check(rel_card <= 1e-12, f"C ABI vs api.Circuit on the card: "
+          f"{rel_card:.3e} > 1e-12")
+    check(rel_cpu <= TRACE_TOL, f"C ABI vs the CPU: {rel_cpu:.3e}")
+    say(21, f"(c) C ABI (build_capi + phy_engine_init {build_s:.2f} s): "
+        f"create_circuit of the ladder's {n} components, circuit_set_tr, "
+        f"circuit_analyze ({LADDER_STEPS} TR steps), circuit_sample: pin "
+        f"voltages vs api.Circuit on the card rel {rel_card:.3e}, vs the "
+        f"CPU rel {rel_cpu:.3e}")
+    gate = ([200, 200, 204, 201], [0, 0, 2, 0, 1, 0, 2, 1, 2, 2, 3, 0],
+            [1.0, 0.0])
+    h, vec, chunk, n = capi_create(lib, *gate)
+    backend = ctypes.cast(h, ctypes.py_object).value.core.digital_backend
+    check(backend == "native", f"the glue chose {backend} for a gate circuit")
+    lib.circuit_digital_clk(h)           # builds the host engine's plan
+    t0 = time.perf_counter()
+    for i in range(CLK_CALLS):
+        lib.circuit_set_model_digital(h, 1, 0, 0, i & 1)
+        check(lib.circuit_digital_clk(h) == 0, "circuit_digital_clk failed")
+    host_us = (time.perf_counter() - t0) / CLK_CALLS * 1e6
+    c_out = capi_sample(lib, h, vec, chunk, n)[1]
+    lib.destroy_circuit(h, vec, chunk)
+    g = api.Circuit([api.Element(200, (1.0,)), api.Element(200, (0.0,)),
+                     api.Element(204), api.Element(201)],
+                    [api.Wire(*gate[1][i:i + 4]) for i in range(0, 12, 4)],
+                    device=dev)
+    g.digital_clk()                      # lowers, builds the tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CLK_CALLS):
+        g.set_model_digital(1, i & 1)
+        g.digital_clk()
+    torch.cuda.synchronize()
+    card_us = (time.perf_counter() - t0) / CLK_CALLS * 1e6
+    g_out = [s for comp in g.sample().components
+             for s in comp.digital_states]
+    check(c_out == g_out and c_out[-1] == (CLK_CALLS - 1) & 1,
+          f"AND gate: C ABI {c_out} vs api.Circuit on the card {g_out}")
+    say(21, f"(c) {CLK_CALLS} set_model_digital + digital_clk calls of a "
+        f"2-input AND: C ABI on the host sweep engine {host_us:.1f} us a "
+        f"call, api.Circuit on the card's levelled tick {card_us:.1f} us a "
+        f"call ({card_us / host_us:.2f}x); equal final states; {smi}")
+    src = b"""module cnt(input clk, input rst_n, output [3:0] q);
+  reg [3:0] r;
+  always @(posedge clk or negedge rst_n)
+    if (!rst_n) r <= 4'd0; else r <= r + 4'd1;
+  assign q = r;
+endmodule
+"""
+    rt = lib.verilog_runtime_create(src, len(src), b"cnt", 3, None, None, 0)
+    check(bool(rt), f"verilog_runtime_create: {lib.phy_engine_last_error()}")
+    ports = {}
+    for i in range(lib.verilog_runtime_port_count(rt)):
+        buf = ctypes.create_string_buffer(64)
+        lib.verilog_runtime_copy_port_name(rt, i, buf, 64)
+        ports[buf.value.decode()] = i
+    lib.verilog_runtime_set_port_value(rt, ports["rst_n"], 0)
+    lib.verilog_runtime_tick(rt)
+    lib.verilog_runtime_set_port_value(rt, ports["rst_n"], 1)
+    for _ in range(5):
+        for level in (1, 0):
+            lib.verilog_runtime_set_port_value(rt, ports["clk"], level)
+            lib.verilog_runtime_tick(rt)
+    q = lib.verilog_runtime_get_port_value(rt, ports["q"])
+    lib.verilog_runtime_destroy(rt)
+    check(q == 5, f"verilog_runtime counter: q = {q} after 5 clocks")
+    say(21, f"(c) verilog_runtime_* round trip: ports {sorted(ports)}, q = "
+        f"{q} after reset and 5 clocks")
+
+    # (d) a PhysicsLab scene of the fp16 adder on the card
+    t0 = time.perf_counter()
+    sav, net = td / "fp16_add.sav", td / "fp16_add.penl"
+    args = [str(DATA / "fp16_add.v"), "--top", "fp16_add", "-O1"]
+    check(v2plsav([str(sav), *args]) == 0 and v2penl([str(net), *args]) == 0,
+          "the CLIs failed on fp16_add -O1")
+    cli_s = time.perf_counter() - t0
+    ex = plsav.Experiment.load(str(sav))
+    live = tio.load(str(net), device="cpu").nl.live_models()
+    ins = [m for m in live if m.mdef.digital_op == "INPUT"]
+    outs = [m for m in live if m.mdef.digital_op == "OUTPUT"]
+    li = [e for e in ex.elements if e.model_id == "Logic Input"]
+    lo = [e for e in ex.elements if e.model_id == "Logic Output"]
+    check((len(ex.elements), len(li), len(lo)) == (2427, 60, 16)
+          and len(ins) == 60 and len(outs) == 16,
+          f"fp16 scene: {len(ex.elements)} elements, {len(li)} Logic "
+          f"Inputs, {len(lo)} Logic Outputs")
+    t0 = time.perf_counter()
+    sc, _idx = plsav.experiment_to_circuit(ex, device=dev)
+    words, y = p20["fp16_words"][0], p20["fp16_y"][0]
+
+    def bit(name):                       # "a[3]" -> ("a", 3)
+        port, i = name[:-1].split("[")
+        return port, int(i)
+
+    for lane in range(FP16_PAIRS):
+        for el, m in zip(li, ins):
+            if m.params.get("synth_const"):
+                val = int(m.params["boolean"])
+            else:
+                port, i = bit(m.name)
+                val = (int(words[port][i]) >> lane) & 1
+            el.properties["开关"] = float(val)
+        plsav.sync_inputs(ex, sc)
+        sc.digital_clk()
+        plsav.write_back(ex, sc)
+        got = [el.properties["状态"] for el in lo]
+        want = [float((int(y[bit(m.name)[1]]) >> lane) & 1) for m in outs]
+        check(got == want, f"fp16 scene, pair {lane}: {got} != {want}")
+    scene_s = time.perf_counter() - t0
+    n_const = sum(1 for m in ins if m.params.get("synth_const"))
+    say(21, f"(d) verilog2plsav fp16_add -O1: {len(ex.elements)} elements "
+        f"({len(li)} Logic Inputs, {n_const} of them constants, {len(lo)} "
+        f"Logic Outputs, {len(ex.wires)} wires, auto-laid-out), the two CLIs "
+        f"{cli_s:.1f} s; experiment_to_circuit on the card, {FP16_PAIRS} "
+        f"operand pairs through sync_inputs / digital_clk (levelled tick) / "
+        f"write_back {scene_s:.2f} s: every output equal to phase 20's -O1 "
+        f"turbo outputs")
+    tmp.cleanup()
+    return n_a
 
 
 # ---------------------------------------------------------------------------
@@ -2181,11 +2573,16 @@ def main():
 
     # phase 20: synthesis at -O2 and above, and the host sweep engine
     t0 = time.perf_counter()
-    n20, err20 = phase20_synth(dev, smi, rv32, o1)
+    n20, err20, p20 = phase20_synth(dev, smi, rv32, o1)
     launches[TURBO["name"]] += n20
     results[TURBO["name"]]["max_abs_err"] = max(
         results[TURBO["name"]]["max_abs_err"], err20)
     say(20, f"phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 21: the user surfaces and persistence
+    t0 = time.perf_counter()
+    launches[TURBO["name"]] += phase21_surfaces(dev, smi, p20)
+    say(21, f"phase 21 took {time.perf_counter() - t0:.1f} s")
 
     # phases 16-19: large systems.  The CPU references run beside them in
     # processes of their own: phase 16's sequence on the CPU and phase

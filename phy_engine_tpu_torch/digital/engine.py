@@ -1056,21 +1056,25 @@ class DigitalEngine:
         self.commit(*last)
         return _u32(hv[0]), _u32(hu[0])
 
-    def _native_check(self, for_tick: bool) -> None:
-        """Raise unless the host sweep engine computes this design: pure
-        gates and flip-flops, no VERILOG_MODULE, no analog sampling, and,
-        for :meth:`tick`, which returns the drives, no analog drives."""
+    def native_blocker(self, for_tick: bool) -> Optional[str]:
+        """Why the host sweep engine cannot compute this design, or None
+        when it can: pure gates and flip-flops, no VERILOG_MODULE, no
+        analog sampling, and, for :meth:`tick`, which returns the drives,
+        no analog drives."""
         ir = self.ir
-        why = None
         if ir.vmods:
-            why = "it has VERILOG_MODULE devices"
-        elif ir.samp_sig.size:
-            why = "it samples analog nets"
-        elif for_tick and ir.drv_sig.size:
-            why = "it drives analog nets"
-        elif not turbo.eligible(ir, allow_cyclic=True):
-            why = ("turbo.eligible(ir, allow_cyclic=True) is false (a "
-                   "device other than gates, INPUT and DFF / DFF_ARSTN)")
+            return "it has VERILOG_MODULE devices"
+        if ir.samp_sig.size:
+            return "it samples analog nets"
+        if for_tick and ir.drv_sig.size:
+            return "it drives analog nets"
+        if not turbo.eligible(ir, allow_cyclic=True):
+            return ("turbo.eligible(ir, allow_cyclic=True) is false (a "
+                    "device other than gates, INPUT and DFF / DFF_ARSTN)")
+        return None
+
+    def _native_check(self, for_tick: bool) -> None:
+        why = self.native_blocker(for_tick)
         if why is not None:
             raise ValueError(f"backend='native' cannot run this design: "
                              f"{why}")

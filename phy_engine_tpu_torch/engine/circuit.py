@@ -39,7 +39,6 @@ import numpy as np
 import torch
 
 from .. import F64
-from ..digital import check_backend
 from ..models.base import DeviceClass, StampCtx
 from ..netlist.netlist import Netlist, Node
 from ..ops.linsolve import dense_solve
@@ -87,6 +86,11 @@ class TRSettings:
     max_attempts: int = 0            # 0 -> 4x the fixed-step count
 
 
+# DigitalEngine's backends (digital.BACKENDS), checked when a Circuit is
+# built, before any digital device is lowered
+DIGITAL_BACKENDS = ("device", "native")
+
+
 def _todo(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to phy_engine_tpu_torch yet (ROADMAP.md "
@@ -130,7 +134,10 @@ class Circuit:
         self.gmin_steps = int(gmin_steps)
         self.dtype = dtype
         self.device = torch.device(device)
-        self.digital_backend = check_backend(digital_backend)
+        if digital_backend not in DIGITAL_BACKENDS:
+            raise ValueError(f"unknown digital backend {digital_backend!r}, "
+                             f"expected one of {DIGITAL_BACKENDS}")
+        self.digital_backend = digital_backend
         self.at = AnalyzeType.OP
         self.ac = ACSettings()
         self.tr = TRSettings()

@@ -1,16 +1,18 @@
-"""Host C++ libraries of the port: the truth-table library (``pe_tt.cpp``)
-that the synthesis passes at -O2 and above evaluate gate cones with, and
-the digital sweep engine (``pe_digital.cpp``) that
-``digital/native_run.py`` clocks a design with.
+"""Host libraries of the port: the truth-table library (``pe_tt.cpp``)
+that the synthesis passes at -O2 and above evaluate gate cones with, the
+digital sweep engine (``pe_digital.cpp``) that ``digital/native_run.py``
+clocks a design with, and the embeddable C ABI (``pe_capi.c``, which
+embeds CPython and calls ``phy_engine_tpu_torch.capi``; :func:`build_capi`).
 
-Both are host code, built by ``g++`` (no nvcc, no card) from this
-package's own sources at first use into ``build/phy_engine_tpu_torch/``
+All are host code, built by ``g++`` / ``cc`` (no nvcc, no card) from
+this package's own sources at first use into ``build/phy_engine_tpu_torch/``
 at the root of the checkout (listed in ``.gitignore``).  A library's file
-name carries a hash of its source and flags and a tag of the host's CPU
-(``-march=native`` code runs only where it was built), so an edited
-source is rebuilt, an unchanged one reused, and another host builds its
-own.  Builds run under a file lock, so concurrent processes build once.
-A failed build raises with the compiler's output; nothing falls back.
+name carries a hash of its source and build command and a tag of the
+host's CPU (``-march=native`` code runs only where it was built), so an
+edited source is rebuilt, an unchanged one reused, and another host builds
+its own.  Builds run under a file lock, so concurrent processes build
+once.  A failed build raises with the compiler's output; nothing falls
+back.
 
 ``eval_graph_plain`` / ``rows_equal_plain`` are the numpy row loops of
 the same functions, kept beside the library for the tests to hold it
@@ -25,6 +27,7 @@ import hashlib
 import os
 import platform
 import subprocess
+import sysconfig
 import tempfile
 import threading
 from pathlib import Path
@@ -41,6 +44,9 @@ LIBS = {
                                       "-funroll-loops", "-shared", "-fPIC",
                                       "-std=c++17")),
 }
+# the C ABI, built by cc against this interpreter (:func:`build_capi`)
+CAPI = "pe_capi"
+CAPI_SRC = "pe_capi.c"
 
 OP_LEAF, OP_NOT, OP_AND, OP_OR, OP_XOR, OP_CONST0, OP_CONST1 = range(7)
 
@@ -63,21 +69,38 @@ def _host_tag() -> str:
                           ).hexdigest()[:8]
 
 
+def _source(name: str) -> Path:
+    return SRC_DIR / (CAPI_SRC if name == CAPI else LIBS[name][0])
+
+
+def _command(name: str, out: str) -> list:
+    """The compiler command that builds library ``name`` into ``out``.
+    The C ABI compiles and links against this interpreter; -Bsymbolic
+    binds its calls to its own definitions, never to those of the JAX
+    package's library, which exports the same names."""
+    if name != CAPI:
+        return ["g++", *LIBS[name][1], "-o", out, str(_source(name))]
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ver = (sysconfig.get_config_var("LDVERSION")
+           or sysconfig.get_config_var("VERSION"))
+    return ["cc", "-O2", "-shared", "-fPIC", "-Wl,-Bsymbolic", "-o", out,
+            str(_source(name)), f"-I{sysconfig.get_path('include')}",
+            f"-L{libdir}", f"-Wl,-rpath,{libdir}", f"-lpython{ver}"]
+
+
 def library_path(name: str) -> Path:
     """Where library ``name`` of the current source lives (built or not)."""
-    src, flags = LIBS[name]
-    h = hashlib.sha256(" ".join(flags).encode())
-    h.update((SRC_DIR / src).read_bytes())
+    h = hashlib.sha256(" ".join(_command(name, "")).encode())
+    h.update(_source(name).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}_{_host_tag()}.so"
 
 
 def build(name: str) -> Path:
     """Compile library ``name`` unless this source is built for this host;
-    returns its path.  Raises with g++'s output on failure."""
+    returns its path.  Raises with the compiler's output on failure."""
     so = library_path(name)
     if so.is_file():
         return so
-    src, flags = LIBS[name]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"lib{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -86,16 +109,16 @@ def build(name: str) -> Path:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            cmd = ["g++", *flags, "-o", tmp, str(SRC_DIR / src)]
+            cmd = _command(name, tmp)
             try:
                 res = subprocess.run(cmd, capture_output=True, text=True,
                                      timeout=300)
             except OSError as e:
-                raise RuntimeError(f"g++ not runnable, {name} cannot be "
+                raise RuntimeError(f"{cmd[0]} not runnable, {name} cannot be "
                                    f"built: {e}") from e
             if res.returncode != 0:
-                raise RuntimeError(f"g++ failed ({res.returncode}) building "
-                                   f"{name}:\n{' '.join(cmd)}\n"
+                raise RuntimeError(f"{cmd[0]} failed ({res.returncode}) "
+                                   f"building {name}:\n{' '.join(cmd)}\n"
                                    f"{res.stdout}{res.stderr}")
             os.replace(tmp, so)
         finally:
@@ -138,6 +161,13 @@ def load(name: str) -> ctypes.CDLL:
             _declare(name, lib)
             _loaded[name] = lib
     return lib
+
+
+def build_capi() -> Path:
+    """Build (unless built) the embeddable C ABI library from
+    ``pe_capi.c`` and return its path; load it with ``ctypes.CDLL`` and
+    call ``phy_engine_init`` first.  Raises on a failed build."""
+    return build(CAPI)
 
 
 def _ptr(a: np.ndarray, ctype):

@@ -7,7 +7,8 @@ by the tests): a VAC source drives an R chain plus ``n_links`` random
 long-range R links, with a diode and a capacitor to ground at every
 node.  255 stages give 256 MNA unknowns (255 nodes + 1 source branch).
 ``diode_ladder_netlist`` is the same circuit as a netlist, which the
-``Circuit`` driver runs.
+``Circuit`` driver runs, and ``diode_ladder_elements`` as the C ABI's
+element-code stream (``capi.create_circuit``, ``api.Circuit``).
 
 ``frozen_transient`` is the main path at a chosen size: a Monte-Carlo
 batch with 5 % lognormal jitter on every R, advanced through fixed
@@ -34,7 +35,8 @@ combinational half-precision adder of the tests.  ``synth_counts``
 synthesizes either design at a level and counts its live devices by type
 and its logic gates (QOR.md's ``count_logic_gates``); ``RV32_O2_COUNTS``
 holds what the JAX package gives for RV32 at -O2, which the chip smoke
-checks.
+checks.  ``rv32_of_penl`` finds the core's clock, reset and ports by
+name in a netlist that ``cli.verilog2penl`` wrote and ``io.load`` read.
 
 ``sar_adc`` / ``sar_convert`` are the port's copy of tests/test_adc.py: a
 ``bits``-bit SAR ADC, synthesized SAR logic driving an R-2R DAC through
@@ -53,6 +55,7 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
+from .api import _CODE_TABLE, ElementCode
 from .engine import analog
 from .engine.circuit import AnalyzeType, Circuit
 from .engine.environment import Environment
@@ -115,6 +118,36 @@ def diode_ladder_netlist(n_stages: int = N_STAGES, r: float = R_CHAIN,
         netops.add_to_node(nl, cl, 0, nodes[i])
         netops.add_to_node(nl, cl, 1, nl.ground_node)
     return nl
+
+
+def diode_ladder_elements(n_stages: int = N_STAGES, r: float = R_CHAIN,
+                          c: float = C_NODE, n_links: int = 255):
+    """``diode_ladder_netlist`` as the C ABI's element stream: (element
+    codes, wire quads (element, pin, element, pin) flattened, positional
+    properties), element 0 the ground; every property the netlist leaves
+    at its default is given as that default."""
+    E = ElementCode
+    codes, props = [int(E.GROUND)], []
+
+    def add(code, **given):
+        mdef, names = _CODE_TABLE[code]
+        codes.append(int(code))
+        props.extend(float(given.get(n, mdef.defaults[n])) for n in names)
+        return len(codes) - 1
+
+    v = add(E.VAC, Vp=2.0, freq=1e6)
+    pairs = [(i, i + 1, r) for i in range(n_stages - 1)]
+    pairs += [(a, b, 10.0 * r) for a, b in ladder_links(n_stages, n_links)]
+    res = [(add(E.RESISTOR, r=rv), a, b) for a, b, rv in pairs]
+    stages = [(add(E.PN_JUNCTION), add(E.CAPACITOR, C=c))
+              for _ in range(n_stages)]
+    node = [cap for _d, cap in stages]       # pin 0 of a stage's capacitor
+    wires = [(v, 0, node[0], 0), (v, 1, 0, 0)]
+    wires += [w for e, a, b in res for w in ((e, 0, node[a], 0),
+                                             (e, 1, node[b], 0))]
+    wires += [w for d, cap in stages for w in ((d, 0, cap, 0), (d, 1, 0, 0),
+                                               (cap, 1, 0, 0))]
+    return codes, [x for w in wires for x in w], props
 
 
 def default_env():
@@ -374,6 +407,24 @@ def rv32_of(syn: "Synth") -> Rv32:
     rep = syn.report
     return Rv32(syn.circuit, syn.ins["clk"][0], syn.ins["rst_n"][0],
                 syn.nets, rep.gate_count + rep.ff_count, RV32_EXPECT)
+
+
+def rv32_of_penl(c: Circuit) -> Rv32:
+    """The RV32 core of a Circuit that ``io.load`` read from
+    ``cli.verilog2penl``'s ``.penl`` of ``pe_rv32``: the INPUT devices
+    ``clk[0]`` / ``rst_n[0]`` and the nets ``result[i]`` / ``done[0]``
+    found by name.  The CLI leaves its INPUT devices at X; both are set
+    to 0 here, as ``synth_top`` builds them, so ``rv32_schedules`` gives
+    the same stimulus.  ``gates``: the live devices but INPUT / OUTPUT."""
+    ins = c.digital_inputs()
+    for name in ("clk[0]", "rst_n[0]"):
+        ins[name].set_attribute("boolean", 0.0)
+    nets = {n.name: n for n in c.nl.nodes}
+    ports = {"result": [nets[f"result[{i}]"] for i in range(32)],
+             "done": [nets["done[0]"]]}
+    gates = sum(1 for m in c.nl.live_models()
+                if m.mdef.digital_op not in ("INPUT", "OUTPUT"))
+    return Rv32(c, ins["clk[0]"], ins["rst_n[0]"], ports, gates, RV32_EXPECT)
 
 
 def rv32_schedules(d: Rv32, cycles: int):

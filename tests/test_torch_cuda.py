@@ -5,9 +5,10 @@ card, the analog Circuit driver's analyses on the card against the
 CPU, and BSIM3 (its hooks, the chain's rescue ladder, noise and
 sensitivity) on the card against the CPU, and the levelled digital tick,
 mixed signal (the SAR ADC, the Tsu/Th automata, VERILOG_MODULE) and the
-flash engine on the card against the CPU and the turbo kernel, and RV32
+flash engine on the card against the CPU and the turbo kernel, RV32
 synthesized at -O2 through the turbo kernel against the levelled tick and
-the host sweep engine.  Marked
+the host sweep engine, and the -O2 core written by ``cli.verilog2penl``
+and loaded by ``io.load`` through the turbo kernel.  Marked
 ``cuda``; each skips on a host without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs
 on a machine that has only torch:
@@ -458,6 +459,34 @@ def test_rv32_o2_native_matches_turbo_on_the_card(cuda, rv32_o2):
     assert int(res[0]) == d.expect == 4264 and int(done[0]) == 1
     res, done = workloads.rv32_run(4, 200, design=d)
     assert (res == 4264).all() and (done == 1).all()
+
+
+@pytest.mark.cuda
+def test_rv32_o2_penl_turbo_on_the_card_matches_levels_on_the_cpu(cuda,
+                                                                   tmp_path):
+    """RV32 through ``cli.verilog2penl -O2``, ``io.load`` on the card and
+    ``Circuit.digital_run``, 24 ticks from power-up: the turbo kernel's
+    history against the levelled tick on the CPU of the same file."""
+    from pathlib import Path
+    from phy_engine_tpu_torch import io as tio
+    from phy_engine_tpu_torch.cli.verilog2penl import main as v2penl
+    src = Path(workloads.__file__).parent / "data" / "pe_rv32.v"
+    penl = tmp_path / "rv32_o2.penl"
+    assert v2penl([str(penl), str(src), "--top", "pe_rv32", "-O2"]) == 0
+    runs = {}
+    for where in (cuda, "cpu"):
+        d = workloads.rv32_of_penl(tio.load(str(penl), device=where))
+        reset, body = workloads.rv32_schedules(d, 10)
+        runs[str(where)] = d.circuit._compile_schedule(reset + body)
+    eng, fs, FV, FU = runs[str(cuda)]
+    before = turbo.run_turbo.launches
+    tv, tu = eng.run_ticks(fs, FV, FU)
+    assert turbo.run_turbo.launches == before + 1
+    ceng, cfs, cFV, cFU = runs["cpu"]
+    np.testing.assert_array_equal(cfs, fs)
+    lv, lu, _last = ceng.run_levels(cfs, cFV[None], cFU[None])
+    np.testing.assert_array_equal(tv, lv[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(tu, lu[0].numpy().view(np.uint32))
 
 
 # ---------------------------------------------------------------------------

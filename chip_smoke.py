@@ -245,6 +245,35 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               pairs through sync_inputs, digital_clk (the levelled tick)
               and write_back, every output equal to phase 20's -O1 turbo
               outputs for the same words.
+22. mesh (runs after 21, before 16) — parallel/ at world size 1 on
+              make_mesh() (NCCL, one card): (a) parallel/dist_gj.py::
+              dist_solve at (B, n) = (1, 4096), random and diagonally
+              boosted (tests/test_dist_gj.py's systems), within 1e-9
+              (relerr) of numpy's f64 solve; the wall, and panel_factor's
+              share of it by CUDA events around each call (plain torch,
+              launch-bound: its device operations a call by
+              torch.profiler).  (b) Circuit(mesh=) on phase 11's ladder at
+              256 unknowns: OP through newton_solve_dist and TR 20 x 50
+              ns through transient_dist, within 1e-6 of max|x| of phase
+              11's dense route (its OP and first 20 TR steps).  (c)
+              sharded_batched_transient_shmap on the main-path ladder
+              (B = 256, 5 % R jitter, 20 steps of 50 ns, solver hybrid):
+              bit-identical to the unsharded transient_batched on the
+              card; its gj_solve32 launches join the kernels line.  (d)
+              digital_run_batch(mesh=) on phase 8's 128 RV32 instances x
+              400 ticks: every watched code bit-identical to phase 8's
+              call (run again beside it), every result 4264, through the
+              turbo kernel (its launches join the kernels line).  (e)
+              temp_sweep(mesh=) of phase 11's 256 temperatures equal to
+              phase 11's (the ladder's VAC puts its OP at 0 V), and
+              dc_sweep / temp_sweep / monte_carlo (op) with mesh= on the
+              ladder driven by 1 V DC, 256 lanes each, bit-identical to
+              the local runs.  (f) graphs_equivalent(mesh=) of phase 20's
+              fp16 adder at -O1 against -O3 (workloads.comb_graph, ports
+              named by bit; 2^20 patterns) true, and false with one output
+              flipped; eval_graph_mesh on the RV32 -O2 core's
+              combinational graph at 2^17 patterns bit-identical to
+              native.eval_graph on the host.  Each part prints its wall.
 
 16. sparse Circuit — the Circuit driver's sparse route (COO assembly and
               the f64 Jacobi BiCGStab of ops/sparse.py, torch ops) on
@@ -962,7 +991,8 @@ def timed(fn):
 def phase11_circuit(dev, smi, stages=workloads.N_STAGES, lanes=256,
                     steps=100, temps=256, n_check=10):
     """The analog Circuit driver on the diode ladder (see the module
-    docstring, phase 11)."""
+    docstring, phase 11).  Returns, for phase 22, the OP, the first 20 TR
+    steps and the temperature sweep (grid, x, ok)."""
     dt = workloads.DT
     n = stages + 1
     c = Circuit(workloads.diode_ladder_netlist(stages), device=dev)
@@ -999,6 +1029,7 @@ def phase11_circuit(dev, smi, stages=workloads.N_STAGES, lanes=256,
         ok, sec = timed(c.analyze)
         check(ok and c.tr_history.shape == (steps, n)
               and np.isfinite(c.tr_history).all(), f"Circuit TR: ok {ok}")
+        out = dict(x_op=x_op, tr=c.tr_history[:20].copy())
         report(f"(a) TR, {steps} steps of {dt:g} s", sec,
                f", {steps / sec:.1f} circuit-steps/s")
         ref.set_analyze_type(AnalyzeType.OP)
@@ -1056,6 +1087,7 @@ def phase11_circuit(dev, smi, stages=workloads.N_STAGES, lanes=256,
         res, sec = timed(lambda: c.temp_sweep(t_grid))
         check(bool(res.ok.all()) and np.isfinite(res.x).all(),
               f"temp_sweep: {int((~res.ok).sum())} of {temps} lanes failed")
+        out.update(temps=t_grid, temp_x=res.x, temp_ok=res.ok)
         report(f"(c) temp_sweep, {temps} temperatures", sec)
         p4 = {k: torch.as_tensor(v[:4]) for k, v in res.params.items()}
         x4, _st, ok4 = batched_op(ir, p4, batch_x(ir, 4, "cpu"),
@@ -1065,6 +1097,7 @@ def phase11_circuit(dev, smi, stages=workloads.N_STAGES, lanes=256,
         rel_c = held("(c) lanes 0-3", res.x[:4], x4.numpy())
     say(11, f"card vs CPU: (b) lanes 0-3 steps 1-{n_check} {rel_b:.3e}, "
         f"(c) lanes 0-3 {rel_c:.3e}")
+    return out
 
 
 def _jac_vmap(f, v):
@@ -1699,7 +1732,7 @@ def phase20_synth(dev, smi, rv32, o1, cycles=200):
         f"logic gates): 4 x 32 lanes of random binary operands through the "
         f"turbo kernel, every output bit equal, none X")
     return n1 + n128, err, dict(o2_planes=o2_planes, fp16_words=words,
-                                fp16_y=v1)
+                                fp16_y=v1, fp16=(s1, s3), rv2=rv2)
 
 
 # ---------------------------------------------------------------------------
@@ -2046,6 +2079,193 @@ endmodule
         f"turbo outputs")
     tmp.cleanup()
     return n_a
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths (phase 22)
+# ---------------------------------------------------------------------------
+
+def port_bit_key(syn):
+    """Names a synthesized design's port nets by (port, bit) and every
+    other net by its identity (``workloads.comb_graph``'s ``key``)."""
+    pb = {id(n): (p, i) for p, ns in syn.nets.items() for i, n in enumerate(ns)}
+    return lambda net: pb.get(id(net), id(net))
+
+
+def phase22_mesh(dev, smi, rv32, p11, p20, n=4096, lanes=256, steps=20,
+                 B=128, cycles=200, patterns=2 ** 17):
+    """The mesh paths on a one-rank NCCL mesh (see the module docstring,
+    phase 22).  ``rv32``: phase 6's -O1 core; ``p11`` / ``p20``: phases
+    11 and 20's results.  Returns the kernel launches of (c) and (d)."""
+    import torch.distributed as dist
+    from phy_engine_tpu_torch import native
+    from phy_engine_tpu_torch.parallel import dist_gj
+    from phy_engine_tpu_torch.parallel.mesh import (
+        axis_size, make_mesh, sharded_batched_transient_shmap)
+    from phy_engine_tpu_torch.parallel.tt_mesh import eval_graph_mesh
+    from phy_engine_tpu_torch.verilog import opt_graph as og
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and axis_size(mesh) == 1
+          and dist.get_world_size() == 1,
+          f"make_mesh(): backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}")
+    say(22, f"make_mesh(): {mesh} on {dev}, backend nccl, world size 1")
+
+    # (a) the cooperative solve at (1, 4096) against numpy's f64 solve
+    rng = np.random.default_rng(22)
+    A = rng.standard_normal((1, n, n)) + 4.0 * np.sqrt(n) * np.eye(n)
+    b = rng.standard_normal((1, n))
+    dist_gj.dist_solve(mesh, A[:, :256, :256], b[:, :256])       # warm-up
+    with Counted(dist_gj, "panel_factor", timed=True) as panels:
+        x, sec = timed(lambda: dist_gj.dist_solve(mesh, A, b, refine=2))
+    panel_ms = panels.seconds() * 1e3
+    xref = np.linalg.solve(A[0], b[0])
+    err = float(np.max(np.abs(x.cpu().numpy()[0] - xref) / (1 + np.abs(xref))))
+    check(err <= 1e-9, f"(a) dist_solve vs numpy {err:.3e} > 1e-9")
+    Fp = torch.as_tensor(A[:, :, :gj.NB], dtype=torch.float32, device=dev)
+    kr = torch.full((1, n), -1, dtype=torch.int64, device=dev)
+    pv = torch.ones((1, n), dtype=torch.float32, device=dev)
+    n_ops, one_ms = device_ops(lambda: gj.panel_factor(Fp, kr, pv, 0))
+    say(22, f"(a) dist_solve (B, n) = (1, {n}), refine 2: wall {sec:.3f} s on "
+        f"{smi}; panel_factor {panels.calls} calls, {panel_ms:.1f} ms = "
+        f"{100 * panel_ms / (sec * 1e3):.1f} % of the wall ({n_ops} device "
+        f"operations, {one_ms:.3f} ms of device time a call); x vs numpy f64 "
+        f"{err:.3e} (relerr)")
+
+    # (b) Circuit(mesh=) on phase 11's ladder: OP and TR, distributed
+    c = Circuit(workloads.diode_ladder_netlist(), device=dev, mesh=mesh)
+    c.set_analyze_type(AnalyzeType.OP)
+    ok_op, s_op = timed(c.analyze)
+    x_op = c._x.cpu().numpy()
+    c.tr.t_step, c.tr.t_stop = workloads.DT, steps * workloads.DT
+    c.set_analyze_type(AnalyzeType.TR)
+    ok_tr, s_tr = timed(c.analyze)
+    check(ok_op and ok_tr and c.tr_history.shape == p11["tr"].shape,
+          f"(b) Circuit(mesh=) OP ok {ok_op}, TR ok {ok_tr}")
+    got = np.vstack([x_op, c.tr_history])
+    ref = np.vstack([p11["x_op"], p11["tr"]])
+    rel_b = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(rel_b <= TRACE_TOL, f"(b) mesh OP / TR vs phase 11 {rel_b:.3e}")
+    say(22, f"(b) Circuit(mesh=) on the {workloads.N_STAGES}-stage ladder "
+        f"({c._ir.n_unknowns} unknowns): OP (newton_solve_dist) {s_op:.3f} s, "
+        f"TR {steps} x {workloads.DT:g} s (transient_dist) {s_tr:.3f} s "
+        f"({steps / s_tr:.2f} circuit-steps/s) on {smi}; vs phase 11's dense "
+        f"route {rel_b:.3e} of max|x|")
+
+    # (c) the per-shard delta-Newton transient at full width
+    ir = workloads.build_diode_ladder()
+    params = batch_params(ir, lanes, jitter={"R": {"r": workloads.R_JITTER}},
+                          generator=torch.Generator().manual_seed(22),
+                          device=dev)
+    env = workloads.default_env()
+    args = (params, batch_x(ir, lanes, dev), batch_state(ir, lanes, dev), env,
+            0.0, workloads.DT, steps)
+    (x_l, _s, ok_l, _x), s_l = timed(lambda: analog.transient_batched(
+        ir, *args, solver="hybrid"))
+    gj.gj_solve32.launches = 0
+    (x_m, _s, ok_m), s_m = timed(lambda: sharded_batched_transient_shmap(
+        ir, mesh, *args, solver="hybrid"))
+    n_gj = gj.gj_solve32.launches
+    check(n_gj > 0, "(c) the sharded transient never launched gj_solve32")
+    check(bool(ok_l.all()) and ok_m, f"(c) ok: local {int(ok_l.sum())} of "
+          f"{lanes}, mesh {ok_m}")
+    check(torch.equal(x_m, x_l), "(c) sharded transient != unsharded, max "
+          f"diff {float((x_m - x_l).abs().max()):.3e}")
+    say(22, f"(c) sharded_batched_transient_shmap, ladder B={lanes} x {steps} "
+        f"steps, solver hybrid: {s_m:.3f} s against the unsharded "
+        f"transient_batched's {s_l:.3f} s on {smi}; bit-identical; gj_solve32 "
+        f"launches {n_gj}")
+
+    # (d) phase 8's 128 RV32 instances, sharded
+    eng = rv32.circuit.digital_engine()
+    watch = rv32.ports["result"] + rv32.ports["done"]
+    reset, body = workloads.rv32_schedules(rv32, cycles)
+    eng.reset_state()
+    rv32.circuit.digital_run(reset)
+    local = rv32.circuit.digital_run_batch([body] * B, watch)
+    turbo.run_turbo.launches = 0
+    codes, s_d = timed(lambda: rv32.circuit.digital_run_batch(
+        [body] * B, watch, mesh=mesh))
+    n_t = turbo.run_turbo.launches
+    last = codes[:, -1].astype(np.int64)
+    res = ((last[:, :32] == 1).astype(np.int64)
+           << np.arange(32, dtype=np.int64)).sum(axis=1)
+    check(n_t > 0, "(d) the sharded batch never launched the turbo kernel")
+    check(np.array_equal(codes, local), "(d) sharded RV32 codes != phase 8's")
+    check(bool((res == rv32.expect).all()), "(d) a sharded RV32 instance did "
+          "not end with the expected result")
+    say(22, f"(d) digital_run_batch(mesh=) RV32 B={B} x {2 * cycles} ticks: "
+        f"{codes.shape[1]} x {codes.shape[2]} watched codes a instance "
+        f"bit-identical to phase 8's call, all results {rv32.expect}; wall "
+        f"{s_d * 1e3:.1f} ms on {smi}; turbo launches {n_t}")
+
+    # (e) the sweeps with mesh=: phase 11's ladder (its VAC's OP is 0 V)
+    # and the same ladder driven by 1 V DC, 256 lanes each
+    c = Circuit(workloads.diode_ladder_netlist(), device=dev)
+    ts = c.temp_sweep(p11["temps"], mesh=mesh)
+    check(np.array_equal(ts.x, p11["temp_x"])
+          and np.array_equal(ts.ok, p11["temp_ok"]),
+          "(e) temp_sweep(mesh=) != phase 11's temp_sweep")
+    cd = Circuit(workloads.diode_ladder_netlist(dc=1.0), device=dev)
+    r0 = next(m for m in cd.nl.live_models() if m.mdef.id_name == "R")
+    runs = {
+        "dc_sweep": lambda **kw: cd.dc_sweep(
+            r0, "r", np.linspace(50.0, 150.0, lanes), **kw),
+        "temp_sweep": lambda **kw: cd.temp_sweep(
+            np.linspace(-40.0, 125.0, lanes), **kw),
+        "monte_carlo": lambda **kw: cd.monte_carlo(
+            {"R": {"r": workloads.R_JITTER}}, lanes,
+            generator=torch.Generator().manual_seed(22), **kw)}
+    walls = []
+    for name, run in runs.items():
+        loc, s1 = timed(run)
+        shd, s2 = timed(lambda: run(mesh=mesh))
+        check(bool(loc.ok.all()), f"(e) {name}: {int((~loc.ok).sum())} of "
+              f"{lanes} local lanes failed")
+        check(np.array_equal(shd.x, loc.x) and np.array_equal(shd.ok, loc.ok),
+              f"(e) {name}(mesh=) != the local {name}")
+        walls.append(f"{name} {s2:.3f} s (local {s1:.3f} s)")
+    say(22, f"(e) with mesh=, {lanes} lanes, bit-identical to the local runs: "
+        f"temp_sweep on phase 11's ladder equal to phase 11's; on the 1 V DC "
+        f"ladder {', '.join(walls)} on {smi}")
+
+    # (f) the truth-table checks sharded over the mesh
+    s1, s3 = p20["fp16"]
+    names = {}
+    g1, g3 = (workloads.comb_graph(s.circuit.nl, s.nets["y"],
+                                   key=port_bit_key(s), names=names)
+              for s in (s1, s3))
+    eq, s_eq = timed(lambda: og.graphs_equivalent(g1, g3, exhaustive_limit=0,
+                                                  mesh=mesh))
+    k, (net, idx) = next(iter(g3.outputs.items()))
+    g3.outputs[k] = (net, g3.gate("NOT", idx))          # one output flipped
+    check(eq and not og.graphs_equivalent(g1, g3, exhaustive_limit=0,
+                                          mesh=mesh),
+          f"(f) fp16 -O1 vs -O3 equivalent {eq}, or a flipped output passed")
+    rv2 = p20["rv2"]
+    nl = rv2.circuit.nl
+    g = workloads.comb_graph(nl, workloads.ff_cone_outputs(
+        nl, [n for p in ("result", "done") for n in rv2.ports[p]]))
+    leaf_row = {}
+    rows, _outs, nr = og._gategraph_to_tt(g, leaf_row, 0)
+    op, f0, f1 = (np.array([r[k] for r in rows], np.int32) for k in range(3))
+    words = np.zeros((nr, patterns // 64), np.uint64)
+    for row in leaf_row.values():
+        words[row] = rng.integers(0, 2 ** 64, patterns // 64, dtype=np.uint64)
+    tt_m, s_tt = timed(lambda: eval_graph_mesh(op, f0, f1, words, mesh))
+    t0 = time.perf_counter()
+    tt_n = native.eval_graph(op.copy(), f0, f1, words.copy())
+    s_nat = time.perf_counter() - t0
+    check(np.array_equal(tt_m, tt_n), "(f) eval_graph_mesh != "
+          "native.eval_graph on the RV32 -O2 graph")
+    say(22, f"(f) graphs_equivalent(mesh=) fp16 -O1 ({g1.gate_count()} graph "
+        f"gates) vs -O3 ({g3.gate_count() - 1}): equivalent over 2^20 patterns in "
+        f"{s_eq:.3f} s, one flipped output caught; eval_graph_mesh on the "
+        f"RV32 -O2 graph ({nr} rows, {len(leaf_row)} leaves, {patterns} "
+        f"patterns) {s_tt:.3f} s on {smi}, bit-identical to native.eval_graph "
+        f"({s_nat:.3f} s on the host)")
+    dist.destroy_process_group()
+    return {"gj_solve32": n_gj, TURBO["name"]: n_t}
 
 
 # ---------------------------------------------------------------------------
@@ -2553,7 +2773,7 @@ def main():
 
     # phase 11: the analog Circuit driver at the ladder's full width
     t0 = time.perf_counter()
-    phase11_circuit(dev, smi)
+    p11 = phase11_circuit(dev, smi)
     say(11, f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     # phase 12: the BSIM3 inverter chain, and the Circuit path on it
@@ -2583,6 +2803,13 @@ def main():
     t0 = time.perf_counter()
     launches[TURBO["name"]] += phase21_surfaces(dev, smi, p20)
     say(21, f"phase 21 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 22: the mesh paths at world size 1 (NCCL)
+    t0 = time.perf_counter()
+    n22 = phase22_mesh(dev, smi, rv32, p11, p20)
+    for name, count in n22.items():
+        launches[name] += count
+    say(22, f"phase 22 took {time.perf_counter() - t0:.1f} s")
 
     # phases 16-19: large systems.  The CPU references run beside them in
     # processes of their own: phase 16's sequence on the CPU and phase

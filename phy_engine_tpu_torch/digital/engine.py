@@ -20,7 +20,9 @@ takes the flash engine (:mod:`.flash`) when ``turbo.eligible(ir,
 allow_cyclic=True)`` and a watch list is given; everything else, and
 every ``tick``, runs the levelled tick.  The Tsu/Th unsteady-state
 automata and the VERILOG_MODULE pre-pass run on the host, as in the JAX
-package.
+package.  ``run_ticks_batched(mesh=...)`` shards the instances over a
+DeviceMesh axis: each rank runs its contiguous shard through the route
+the local call takes, and the histories are all-gathered.
 
 tick = sample analog pins -> force INPUT values -> transport delays
        -> input-cone pre-settle -> sequential devices (edge-triggered,
@@ -1129,18 +1131,50 @@ class DigitalEngine:
         self._writeback()
         return v[:, :plan.S], u[:, :plan.S]
 
-    def run_ticks_batched(self, forced_sig, FV, FU, watch=None):
+    def run_ticks_batched(self, forced_sig, FV, FU, watch=None, mesh=None,
+                          axis: str = "batch"):
         """Run B independent instances of the design for T ticks each,
         every one from the engine's CURRENT state (nothing is committed
         back).  ``FV``/``FU``: uint32[B, T, S] per-instance schedules over
         the shared ``forced_sig`` list.  ``watch``: signal indices whose
-        per-tick planes are recorded (all signals when None).  Returns
-        (hist_v, hist_u) uint32 numpy [B, T, len(watch)]."""
+        per-tick planes are recorded (all signals when None).  ``mesh`` /
+        ``axis``: a DeviceMesh on the engine's device and the axis to
+        shard the instances over — each rank runs its contiguous shard
+        (padded to the rank count by repeating the last instance; flash
+        pads per rank as the JAX package does) and every rank returns
+        all B histories.  Returns (hist_v, hist_u) uint32 numpy [B, T,
+        len(watch)]."""
         if self.ir.vmods:
             raise ValueError("run_ticks_batched: VERILOG_MODULE devices "
                              "need per-tick host interaction")
         FV = np.asarray(FV, np.uint32)
         FU = np.asarray(FU, np.uint32)
+        if mesh is None:
+            return self._run_batched_local(forced_sig, FV, FU, watch)
+        from ..parallel import mesh as pm
+        mdev = pm.mesh_device(mesh)
+        if mdev.type != self.device.type or (
+                self.device.index is not None and mdev != self.device):
+            raise ValueError(f"run_ticks_batched(mesh=...): the engine "
+                             f"lives on {self.device}, the rank on {mdev}")
+        if watch is not None and not turbo.eligible(self.ir) \
+                and turbo.eligible(self.ir, allow_cyclic=True):
+            from . import flash
+            return flash.run_batched(self.flash_plan(forced_sig), self.sv,
+                                     self.su, self.seq_state, FV, FU, watch,
+                                     device=self.device, mesh=mesh,
+                                     axis=axis)
+        B = FV.shape[0]
+        D = pm.axis_size(mesh, axis)
+        lo, hi = pm.shard_range(-(-B // D) * D, mesh, axis)
+        shard = [np.ascontiguousarray(pm.pad_rows(torch.from_numpy(a), D)
+                                      [lo:hi].numpy()) for a in (FV, FU)]
+        hv, hu = self._run_batched_local(forced_sig, *shard, watch)
+        return tuple(pm.gather_rows(torch.from_numpy(h.view(np.int32))
+                                    .to(mdev), mesh, axis)[:B].cpu()
+                     .numpy().view(np.uint32) for h in (hv, hu))
+
+    def _run_batched_local(self, forced_sig, FV, FU, watch):
         if turbo.eligible(self.ir):
             plan = self.plan(forced_sig)
             FVd = turbo.as_int32(FV).to(self.device)

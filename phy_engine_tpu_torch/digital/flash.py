@@ -29,8 +29,12 @@ the whole batch changes, as the JAX package's does.
 
 Every pass and the flip-flop update are torch ops on the plan's device
 (gathers, bitwise ops, slice stores); the ``lax.scan`` over ticks is a
-host loop.  The multi-device branch of the JAX package's
-``run_batched`` (``mesh=``) is not ported (ROADMAP.md queue 1 item 14).
+host loop.  ``run_batched(mesh=...)`` shards the instance columns over a
+DeviceMesh axis as the JAX package's ``shard_map`` branch does: the batch
+is padded with all-L instances as the JAX package pads it (to at least
+``MIN_W // 2`` columns a rank when it must pad at all), each rank runs
+its contiguous block (its own fixpoint), and the histories are
+all-gathered.
 """
 
 from __future__ import annotations
@@ -46,8 +50,10 @@ from .ir import DigitalIR
 from .turbo import _GEN2_ENC, _expand_level
 
 # The JAX package pads the instance columns up to a gather threshold of
-# its accelerator; results never depend on the column count, so the port
-# runs the B columns it is given.
+# its accelerator.  The local run does not (no result depends on the
+# column count); the mesh branch pads as the JAX package's does, so each
+# rank's fixpoint sees the columns its JAX shard sees.
+MIN_W = 256
 
 # ops sorted key (stable run grouping)
 _OP_ID = {op: i for i, op in enumerate(_GEN2_ENC)}
@@ -340,9 +346,10 @@ def tick(plan: FlashPlan, st, forced_blk, B: int, tabs=None):
 
 
 def run_batched(plan: FlashPlan, sv, su, seq_state, FV, FU, watch,
-                device="cuda"):
+                device="cuda", mesh=None, axis: str = "batch"):
     """B-instance batched run on ``device``, every instance from the
-    given state.
+    given state; with ``mesh``, the instances shard over its ``axis``
+    (see the module docstring) and every rank gets all B histories.
 
     FV/FU: uint32 (B, T, nf); watch: old-numbering signal indices.
     Returns (hv, hu) uint32 numpy (B, T, nw)."""
@@ -351,6 +358,30 @@ def run_batched(plan: FlashPlan, sv, su, seq_state, FV, FU, watch,
     B, T, nf = FV.shape
     if nf != plan.nf:
         raise ValueError(f"FV has {nf} forced columns, the plan {plan.nf}")
+    if mesh is None:
+        return _run_local(plan, sv, su, seq_state, FV, FU, watch, device)
+    from ..parallel import mesh as pm
+    ndev = pm.axis_size(mesh, axis)
+    Bp, min_b = B, max(MIN_W // 2, ndev)
+    if Bp % ndev or Bp < min_b:
+        # a per-rank multiple that keeps each shard at MIN_W // 2 or more
+        Bp = max(min_b, -(-B // ndev) * ndev)
+        Bp = max(-(-Bp // ndev), MIN_W // 2) * ndev
+    pad = np.zeros((Bp - B, T, nf), np.uint32)
+    lo, hi = pm.shard_range(Bp, mesh, axis)
+    hv, hu = _run_local(plan, sv, su, seq_state,
+                        np.concatenate([FV, pad])[lo:hi],
+                        np.concatenate([FU, pad])[lo:hi], watch, device)
+    mdev = pm.mesh_device(mesh)
+    return tuple(pm.gather_rows(torch.from_numpy(h.view(np.int32)).to(mdev),
+                                mesh, axis)[:B].cpu().numpy().view(np.uint32)
+                 for h in (hv, hu))
+
+
+def _run_local(plan: FlashPlan, sv, su, seq_state, FV, FU, watch, device):
+    B, T, nf = FV.shape
+    FV = np.ascontiguousarray(FV)
+    FU = np.ascontiguousarray(FU)
     device = torch.device(device)
     tabs = plan.tables(device)
     watch_new = torch.as_tensor(

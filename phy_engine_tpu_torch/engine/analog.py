@@ -251,10 +251,28 @@ def _ext(x):
 
 
 def _stamp_family(ir, fam, params, x_ext, states, ctx):
+    """One family's (a_vals (B, n_inst, K), z_vals (B, n_inst, Kz), new
+    states), with the values of a masked family (``fam.mask``: the
+    padding of ``parallel.mesh.tp_pad_ir``) multiplied by its mask."""
     pins, brs = _family_index(ir, fam, x_ext.device)
     key = fam.mdef.id_name
-    return fam.mdef.stamp(params[key], x_ext[:, pins], x_ext[:, brs],
-                          states.get(key, {}), ctx)
+    a_vals, z_vals, st2 = fam.mdef.stamp(params[key], x_ext[:, pins],
+                                         x_ext[:, brs], states.get(key, {}),
+                                         ctx)
+    return apply_mask(fam, a_vals, z_vals) + (st2,)
+
+
+def apply_mask(fam, a_vals, z_vals):
+    """(a_vals, z_vals) times the family's per-instance mask, when it has
+    one (the JAX package's optional ``fam.mask``)."""
+    msk = getattr(fam, "mask", None)
+    if msk is None:
+        return a_vals, z_vals
+    m = torch.as_tensor(msk, dtype=a_vals.dtype, device=a_vals.device)
+    a_vals = a_vals * m[:, None]
+    if fam.z_rows.size:
+        z_vals = z_vals * m[:, None]
+    return a_vals, z_vals
 
 
 def _merge(take, old, new):
@@ -270,21 +288,23 @@ def _merge(take, old, new):
 # ---------------------------------------------------------------------------
 
 def assemble_sparse(ir: AnalogIR, params, x, states, ctx: StampCtx,
-                    drives=None):
+                    drives=None, stamp=None):
     """COO values + RHS for the batch.
 
     ``drives``: optional dict with 'node' (k,) int numpy, 'active' (k,)
     and 'v' (k,) float tensors — the digital->analog branch constraints
     regenerated per tick (circuit.h:1015-1022): an active slot is an
     ideal V source from its node, an inactive one forces its current to
-    0.  Returns (rows (nnz,), cols (nnz,), vals (B, nnz), Z (B, n),
+    0.  ``stamp``: the family stamp, ``_stamp_family`` by default (the
+    mesh's instance-sharded ``parallel.mesh.sharded_stamper`` takes its
+    place).  Returns (rows (nnz,), cols (nnz,), vals (B, nnz), Z (B, n),
     new_states); rows/cols are the shared unbatched pattern."""
     B = x.shape[0]
     x_ext = _ext(x)
+    stamp = stamp or _stamp_family
     val_parts, z_parts, new_states = [], [], {}
     for fam in ir.families:
-        a_vals, z_vals, st2 = _stamp_family(ir, fam, params, x_ext, states,
-                                            ctx)
+        a_vals, z_vals, st2 = stamp(ir, fam, params, x_ext, states, ctx)
         if fam.a_rows.size:
             val_parts.append(a_vals.reshape(B, -1))
         if fam.z_rows.size:
@@ -323,14 +343,15 @@ def _cat(parts, like):
     return like.new_zeros((like.shape[0], 0))
 
 
-def assemble(ir: AnalogIR, params, x, states, ctx, drives=None):
+def assemble(ir: AnalogIR, params, x, states, ctx, drives=None,
+             stamp=None):
     """Dense (B, n, n) system, (B, n) RHS and the new device states: the
     sparse assembly scattered in entry order — the same sums, in the same
     order, as the JAX package's dense ``assemble`` (families, then gmin,
-    then drive slots).  ``drives``: see `assemble_sparse`."""
+    then drive slots).  ``drives``, ``stamp``: see `assemble_sparse`."""
     n = ir.n_unknowns
     _r, _c, vals, Z, st2 = assemble_sparse(ir, params, x, states, ctx,
-                                           drives)
+                                           drives, stamp)
     A = _plan(ir, "dense", n, _drive_nodes(ir, drives)).sum(vals).reshape(
         x.shape[0], n, n)
     return A, Z, st2
@@ -393,7 +414,7 @@ def coo_layout(ir: AnalogIR, drives=None) -> COOLayout:
 
 def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
                  max_iter: int = MAX_NEWTON_ITER, drives=None,
-                 method: str = "dense"):
+                 method: str = "dense", stamp=None):
     """Newton outer loop (circuit.h:892-985) per lane.  Linear circuits
     take one solve, as the reference's ``if(!has_nonlinear_device())
     return solve_once()``.  (B, ...) in; returns (x (B, n), states, ok
@@ -404,19 +425,20 @@ def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
     (``dense_solve``: the f64 Gauss-Jordan for float64); 'sparse' — COO
     assembly and the f64 Jacobi BiCGStab (``ops.sparse.bicgstab``, warm
     started from the lane's x), for large systems: no dense matrix is
-    built (the size policy lives in the ``Circuit`` driver)."""
+    built (the size policy lives in the ``Circuit`` driver).  ``stamp``:
+    see `assemble_sparse`."""
     if method == "sparse":
         layout = coo_layout(ir, drives)
 
         def solve_once(x, st):
             _r, _c, vals, Z, st2 = assemble_sparse(ir, params, x, st, ctx,
-                                                   drives)
+                                                   drives, stamp)
             x_new, ok, _it = bicgstab(None, None, vals, Z, ir.n_unknowns,
                                       x0=x, layout=layout)
             return x_new, st2, ok & torch.isfinite(x_new).all(dim=1)
     elif method == "dense":
         def solve_once(x, st):
-            A, Z, st2 = assemble(ir, params, x, st, ctx, drives)
+            A, Z, st2 = assemble(ir, params, x, st, ctx, drives, stamp)
             x_new = dense_solve(A, Z)
             return x_new, st2, torch.isfinite(x_new).all(dim=1)
     else:

@@ -24,9 +24,18 @@ OP, DC, TROP, TR and adaptive TR take the dense route (dense assembly,
 the f64 Gauss-Jordan) below ``sparse_threshold`` unknowns and the sparse
 route (COO assembly, the f64 Jacobi BiCGStab of ``ops/sparse.py``, no
 dense matrix) at or above it, or as ``solver`` forces; AC, noise, sens and
-the sweeps stay dense, as in the JAX package.  Not ported yet, raising
-``NotImplementedError`` with its ROADMAP.md queue 1 item: the mesh routes
-(item 14).
+the sweeps stay dense, as in the JAX package.
+
+With ``mesh=`` (a ``parallel.mesh.make_mesh`` DeviceMesh; every rank of
+the process group builds the same Circuit and calls the same analyses),
+OP / DC and fixed-step TR of a pure-analog circuit run fully distributed
+(``parallel/dist_newton.py``: instance-sharded stamping and the
+cooperative column-sharded factorization), and AC shards its omega grid
+over the mesh — or, with fewer points than ranks, factors each point's
+system cooperatively.  Adaptive TR and mixed signal stay on the
+single-device path.  The sweeps and ``digital_run_batch`` take their own
+``mesh=``: their lanes shard over it and every rank gets the whole
+result.
 """
 
 from __future__ import annotations
@@ -91,10 +100,16 @@ class TRSettings:
 DIGITAL_BACKENDS = ("device", "native")
 
 
-def _todo(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to phy_engine_tpu_torch yet (ROADMAP.md "
-        f"queue 1 item {item})")
+def _mesh_device(mesh, device):
+    """The rank's device on ``mesh``; ``device`` must name the same."""
+    from ..parallel.mesh import mesh_device
+    mdev = mesh_device(mesh)
+    want = torch.device(device)
+    if want.type != mdev.type or (want.index is not None
+                                  and want.index != mdev.index):
+        raise ValueError(f"Circuit(mesh=...) runs on the rank's device "
+                         f"{mdev}, not {want}")
+    return mdev
 
 
 def _one(tree):
@@ -122,9 +137,12 @@ class Circuit:
         gmin-stepping ladder's length on an OP/DC Newton failure (0
         disables).  ``device``: where every analysis runs.
         ``digital_backend``: the digital engine's ``backend`` ("device"
-        or "native", the host sweep engine; see ``DigitalEngine``)."""
+        or "native", the host sweep engine; see ``DigitalEngine``).
+        ``mesh``: a ``parallel.mesh.make_mesh`` DeviceMesh (see the module
+        docstring); the circuit then lives on the rank's device, and a
+        ``device`` of another type or index raises."""
         if mesh is not None:
-            raise _todo("Circuit(mesh=...)", "14")
+            device = _mesh_device(mesh, device)
         if solver not in ("auto", "dense", "sparse"):
             raise ValueError(f"unknown solver {solver!r}")
         self.nl = netlist if netlist is not None else Netlist()
@@ -134,6 +152,7 @@ class Circuit:
         self.gmin_steps = int(gmin_steps)
         self.dtype = dtype
         self.device = torch.device(device)
+        self.mesh = mesh
         if digital_backend not in DIGITAL_BACKENDS:
             raise ValueError(f"unknown digital backend {digital_backend!r}, "
                              f"expected one of {DIGITAL_BACKENDS}")
@@ -270,10 +289,22 @@ class Circuit:
 
     def _analyze_op(self, mode: str) -> bool:
         params = self._params()
-        x, st, ok = self._newton(mode, params, self._x, self._states,
-                                 self._env_scalars())
-        if not ok and self.gmin_steps > 0:
-            x, st, ok = self._gmin_stepping(mode, params)
+        if (self.mesh is not None and mode in ("op", "dc")
+                and self._drives is None):
+            # distributed route: sharded stamping + cooperative
+            # column-sharded factorization over the mesh
+            from ..parallel.dist_newton import newton_solve_dist
+            x, st_pad, ok = newton_solve_dist(
+                self._ir, self.mesh, params, self._x, self._states,
+                self._env_scalars(), mode=mode)
+            # drop the instance padding so the stored state feeds later
+            # single-device analyses
+            st = self._unpad_states(self._ir, st_pad) if ok else self._states
+        else:
+            x, st, ok = self._newton(mode, params, self._x, self._states,
+                                     self._env_scalars())
+            if not ok and self.gmin_steps > 0:
+                x, st, ok = self._gmin_stepping(mode, params)
         if ok:
             self._x, self._states = x, st
             self._writeback(x.cpu().numpy())
@@ -308,6 +339,15 @@ class Circuit:
             return x, st, False
         return x, st, True
 
+    @staticmethod
+    def _unpad_states(ir, st_pad):
+        """Truncate ``tp_pad_ir``'s instance padding back to the real
+        instance counts."""
+        return {fam.mdef.id_name: {k: v[:len(fam.instances)]
+                                   for k, v in st_pad.get(
+                                       fam.mdef.id_name, {}).items()}
+                for fam in ir.families}
+
     def _row_residual(self, ctx, params, x, st):
         """|A x - Z| / (|A| |x| + |Z|) row by row at (x, st) — densely on
         the dense route; on the sparse route from the COO values through
@@ -334,6 +374,9 @@ class Circuit:
         params = self._params()
         dt = self.tr.t_step
         num_steps = max(1, int(round(self.tr.t_stop / dt)))
+        if self.mesh is not None and self._drives is None \
+                and self._digital is None:
+            return self._analyze_tr_dist(params, dt, num_steps)
         x, st, ok, xs = analog.transient(
             self._ir, _one(params), self._x[None], _one(self._states),
             self._env_scalars(), self.tr_duration, dt, num_steps,
@@ -346,6 +389,22 @@ class Circuit:
             self.tr_duration += num_steps * dt
             self._writeback(self._x.cpu().numpy())
             self._observe_tr_substeps()
+        return ok
+
+    def _analyze_tr_dist(self, params, dt: float, num_steps: int) -> bool:
+        """Fixed-step TR with sharded stamping and the cooperative
+        factorization in every Newton iteration."""
+        from ..parallel.dist_newton import transient_dist
+        x, st_pad, ok, xs = transient_dist(
+            self._ir, self.mesh, params, self._x, self._states,
+            self._env_scalars(), self.tr_duration, dt, num_steps)
+        if ok:
+            self._x = x
+            self._states = self._unpad_states(self._ir, st_pad)
+            self.tr_history = np.asarray(xs)
+            self.tr_times = self.tr_duration + dt * np.arange(1, num_steps + 1)
+            self.tr_duration += num_steps * dt
+            self._writeback(x.cpu().numpy())
         return ok
 
     def _analyze_tr_adaptive(self) -> bool:
@@ -385,9 +444,34 @@ class Circuit:
 
     def _analyze_ac(self) -> bool:
         grid = self._omega_grid()
-        xs_re, xs_im = analog.ac_sweep(self._ir, self._params(),
-                                       self._states, self._tensor(grid))
-        xs = xs_re.cpu().numpy() + 1j * xs_im.cpu().numpy()
+        params = self._params()
+        if self.mesh is not None:
+            from ..parallel import mesh as pm
+            D = pm.axis_size(self.mesh)
+            if len(grid) < D:
+                # too few omegas to occupy the mesh as a sweep axis:
+                # factor each point's 2n-real system with its columns
+                # sharded over the mesh instead
+                from ..parallel.dist_newton import ac_solve_dist
+                try:
+                    xs = ac_solve_dist(self._ir, self.mesh, params,
+                                       self._states, grid)
+                except RuntimeError:
+                    return False
+            else:
+                # shard the grid (padded by repeating its last point)
+                w = pm.pad_rows(self._tensor(grid), D)
+                lo, hi = pm.shard_range(len(w), self.mesh)
+                re, im = analog.ac_sweep(self._ir, params, self._states,
+                                         w[lo:hi])
+                xs = pm.gather_rows(torch.cat([re, im], dim=1),
+                                    self.mesh)[:len(grid)].cpu().numpy()
+                n = self._ir.n_unknowns
+                xs = xs[:, :n] + 1j * xs[:, n:]
+        else:
+            xs_re, xs_im = analog.ac_sweep(self._ir, params, self._states,
+                                           self._tensor(grid))
+            xs = xs_re.cpu().numpy() + 1j * xs_im.cpu().numpy()
         if not np.all(np.isfinite(xs)):
             return False
         self.ac_sweep_results = [(float(w), xs[i])
@@ -469,14 +553,28 @@ class Circuit:
             return int(brs[0].index)
         raise ValueError("output must be a node or a branch device")
 
-    def _run_batched_op(self, params_b, nv: int):
+    def _run_batched_op(self, params_b, nv: int, mesh=None):
         """Shared tail of the sweep analyses: every lane's OP from x = 0
-        and the initial device states."""
+        and the initial device states — with ``mesh``, each rank solves
+        its contiguous shard of the lanes (padded to the rank count by
+        repeating the last lane) and the results are all-gathered, the
+        padding dropped."""
         ir = self._ir
-        x, _st, ok = batched_op(ir, params_b,
-                                batch_x(ir, nv, self.device, self.dtype),
-                                batch_state(ir, nv, self.device, self.dtype),
+        pb, dev = params_b, self.device
+        if mesh is not None:
+            from ..parallel import mesh as pm
+            dev = pm.mesh_device(mesh)
+            D = pm.axis_size(mesh)
+            pb = {k: pm.pad_rows(v, D) for k, v in params_b.items()}
+            lo, hi = pm.shard_range(len(next(iter(pb.values()))), mesh)
+            pb = {k: v[lo:hi].to(dev) for k, v in pb.items()}
+        B = len(next(iter(pb.values())))
+        x, _st, ok = batched_op(ir, pb, batch_x(ir, B, dev, self.dtype),
+                                batch_state(ir, B, dev, self.dtype),
                                 self._env_scalars())
+        if mesh is not None:
+            x = pm.gather_rows(x, mesh)[:nv]
+            ok = pm.gather_rows(ok, mesh)[:nv]
         return (x.cpu().numpy(), ok.cpu().numpy(),
                 {k: v.cpu().numpy() for k, v in params_b.items()})
 
@@ -499,9 +597,9 @@ class Circuit:
         optional Node or branch device whose (nv,) trace the result's
         ``out`` holds.  Mixed-signal circuits are not swept (digital
         drives are per-tick state).  Does not disturb the circuit's stored
-        solution.  Returns a :class:`SweepResult`."""
-        if mesh is not None:
-            raise _todo("dc_sweep(mesh=...)", "14")
+        solution.  ``mesh``: a DeviceMesh — the grid's lanes shard over
+        every axis of it (see `_run_batched_op`).  Returns a
+        :class:`SweepResult`."""
         ir = self.prepare()
         if ir.n_drive_slots:
             raise ValueError("dc_sweep does not support mixed-signal "
@@ -511,7 +609,7 @@ class Circuit:
         nv = len(vals)
         params_b = self._sweep_params(nv)
         params_b[key][:, i, j] = self._tensor(vals)
-        x, ok, pb = self._run_batched_op(params_b, nv)
+        x, ok, pb = self._run_batched_op(params_b, nv, mesh)
         res = SweepResult(ir, vals, x, ok, pb)
         if out is not None:
             res.out = res.trace(out)
@@ -520,10 +618,9 @@ class Circuit:
     def temp_sweep(self, temps, out=None, mesh=None):
         """Global temperature sweep (.STEP TEMP class): the OP at every
         temperature in one batched program, each lane setting the ``Temp``
-        parameter of every family that has one.  Returns a
-        :class:`SweepResult` (``values`` = temps in °C)."""
-        if mesh is not None:
-            raise _todo("temp_sweep(mesh=...)", "14")
+        parameter of every family that has one.  ``mesh``: as in
+        `dc_sweep`.  Returns a :class:`SweepResult` (``values`` = temps in
+        °C)."""
         ir = self.prepare()
         if ir.n_drive_slots:
             raise ValueError("temp_sweep does not support mixed-signal "
@@ -536,7 +633,7 @@ class Circuit:
             if "Temp" in fam.mdef.param_order:
                 j = fam.mdef.param_order.index("Temp")
                 params_b[fam.mdef.id_name][:, :, j] = tj[:, None]
-        x, ok, pb = self._run_batched_op(params_b, nv)
+        x, ok, pb = self._run_batched_op(params_b, nv, mesh)
         res = SweepResult(ir, temps, x, ok, pb)
         if out is not None:
             res.out = res.trace(out)
@@ -553,9 +650,10 @@ class Circuit:
         'op', or 'tr' (fixed-step transient of ``t_stop`` / ``t_step``,
         waveforms kept per lane).  Returns a :class:`SweepResult` whose
         ``params`` hold the sampled values; for 'tr' ``history`` is
-        (n, steps, N)."""
-        if mesh is not None:
-            raise _todo("monte_carlo(mesh=...)", "14")
+        (n, steps, N).  ``mesh``: 'op' lanes shard over it as in
+        `dc_sweep` ('tr' with its waveforms stays on the rank; the
+        final-state sharded transient is ``parallel.mesh.
+        sharded_batched_transient``)."""
         ir = self.prepare()
         if ir.n_drive_slots:
             raise ValueError("monte_carlo does not support "
@@ -567,7 +665,7 @@ class Circuit:
         params_b = jitter_params(ir, self._params(), n, jitter, generator,
                                  self.device)
         if analysis == "op":
-            x, ok, pb = self._run_batched_op(params_b, n)
+            x, ok, pb = self._run_batched_op(params_b, n, mesh)
             return SweepResult(ir, np.arange(n), x, ok, pb)
         dt = t_step or self.tr.t_step
         steps = max(1, int(round((t_stop or self.tr.t_stop) / dt)))
@@ -776,17 +874,21 @@ class Circuit:
                     FU[t, pos[s]] = FULL32 if (code & 2) else 0
         return eng, np.array(fs, np.int32), FV, FU
 
-    def digital_run_batch(self, schedules, watch_nodes):
+    def digital_run_batch(self, schedules, watch_nodes, mesh=None,
+                          axis: str = "batch"):
         """Run B independent copies of the design, one schedule each (all
         the same length), from the current state.  ``watch_nodes``: nets
-        whose per-tick 4-state codes are recorded.  Returns int8 codes of
-        shape [B, T, len(watch_nodes)] (lane 0)."""
+        whose per-tick 4-state codes are recorded.  ``mesh`` / ``axis``:
+        shard the instances over that DeviceMesh axis (each rank runs its
+        contiguous shard; every rank gets all B histories).  Returns int8
+        codes of shape [B, T, len(watch_nodes)] (lane 0)."""
         compiled = [self._compile_schedule(s) for s in schedules]
         eng, fs = compiled[0][:2]
         FV = np.stack([c[2] for c in compiled])
         FU = np.stack([c[3] for c in compiled])
         watch = [eng.ir.node_sig.get(id(n), 0) for n in watch_nodes]
-        hv, hu = eng.run_ticks_batched(fs, FV, FU, watch=watch)
+        hv, hu = eng.run_ticks_batched(fs, FV, FU, watch=watch, mesh=mesh,
+                                       axis=axis)
         v = (hv & 1).astype(np.int8)
         u = (hu & 1).astype(np.int8)
         return v | (u << 1)

@@ -29,6 +29,16 @@ from .analog import _ext, _family_index, assemble_ac, split_real
 from .lower import AnalogIR
 
 
+def _masked(fam, t):
+    """t (W, n_inst, ...) times the family's per-instance mask, when it
+    has one (``parallel.mesh.tp_pad_ir``'s padding)."""
+    msk = getattr(fam, "mask", None)
+    if msk is None:
+        return t
+    m = torch.as_tensor(msk, dtype=t.dtype, device=t.device)
+    return t * m.reshape((-1,) + (1,) * (t.dim() - 2))
+
+
 def _unit(W: int, n2: int, row: int, like):
     e = like.new_zeros((W, n2))
     e[:, row] = 1.0
@@ -77,6 +87,7 @@ def noise_sweep(ir: AnalogIR, params, x_op, states, omegas, out_idx: int,
             continue
         pins, P, vp, vb, st, fw = family_inputs(fam)
         psd = fam.mdef.noise(P, vp, vb, st, env, fw).clamp(min=0.0)
+        psd = _masked(fam, psd)
         g2 = []
         for pair in fam.mdef.noise_pairs:
             gr, gi = gain(pins, pair)
@@ -93,6 +104,7 @@ def noise_sweep(ir: AnalogIR, params, x_op, states, omegas, out_idx: int,
         pins, P, vp, vb, st, fw = family_inputs(fam)
         S = fam.mdef.noise_corr(P, vp, vb, st, env, fw,
                                 omegas[:, None].expand(fw.shape))
+        S = _masked(fam, S)
         terms = []
         for g, (pa, pb) in enumerate(fam.mdef.noise_corr_pairs):
             ga_r, ga_i = gain(pins, pa)

@@ -9,6 +9,10 @@ x[k] = W[r] / pivd[r] where krow[r] = k.  A singular lane yields
 NaN/Inf and never raises; callers gate on isfinite.  ``pivd`` accumulates
 as ``1 + (pivval - 1)`` in float32 exactly as the reference does.
 
+``panel_factor`` / ``trailing_update`` are the panel step and the
+rank-128 update of the mesh-distributed solver (``parallel/dist_gj.py``);
+they are plain XLA in the JAX package and plain torch here.
+
 ``solve_batched`` is the dense batched solve around ``gj_solve32``:
 power-of-two equilibration, padding to a multiple of 128, float64
 residual refinement and a NaN reject of lanes whose residual stays above
@@ -70,6 +74,53 @@ def _gj_eliminate(W, n: int):
         krow = torch.where(onehot > 0.5, k, krow)
         pivd = pivd + onehot * (pivval - 1.0)
     return krow, pivd
+
+
+def panel_factor(panel, krow, pivd, k0: int):
+    """One-hot-pivot elimination of one (B, n, nb) column panel (the JAX
+    package's ``panel_factor``, plain torch: it is XLA there too).
+
+    Eliminates the panel's nb columns in sequence, each against the
+    largest |value| among rows not yet pivoted (``krow < 0``; a tie goes
+    to the smallest row index); each eliminated column is overwritten
+    with its factor column, so the returned panel is the accumulated
+    transform G (M = I - G·Oᵀ).  ``krow`` / ``pivd`` are the (B, n) pivot
+    bookkeeping shared across panels (krow int, -1 = free); ``k0`` is the
+    panel's global column offset.  Arithmetic follows the panel's dtype
+    (f32 on the fast path; the distributed solver's validated fallback
+    factors in f64), and pivots accumulate as ``1 + (p - 1)``.  Returns
+    new (G, krow, pivd); the inputs are not modified."""
+    B, n, nb = panel.shape
+    panel = panel.clone()
+    krow = krow.clone()
+    pivd = pivd.clone()
+    taken = krow >= 0
+    for j in range(nb):
+        col = panel[:, :, j]
+        # the first largest |value| among free rows: argmax returns the
+        # first index of the maximum (a NaN column picks its NaN)
+        r = col.abs().masked_fill(taken, -3e38).argmax(dim=1, keepdim=True)
+        pivval = torch.gather(col, 1, r)                        # (B, 1)
+        pivrow = torch.gather(panel, 1, r[:, :, None].expand(-1, 1, nb))
+        f = (col / pivval).scatter_(1, r, 0.0)
+        panel -= f[:, :, None] * pivrow
+        panel[:, :, j] = f
+        taken.scatter_(1, r, True)
+        krow.scatter_(1, r, k0 + j)
+        pivd.scatter_add_(1, r, pivval - 1.0)
+    return panel, krow, pivd
+
+
+def trailing_update(O, G, T):
+    """Rank-nb update ``T - G · (Oᵀ · T)`` of one trailing block.
+
+    O: (B, n, nb) one-hot pivot selectors, G: (B, n, nb) factor panel,
+    T: (B, n, m) trailing columns (or right-hand sides).  Two batched
+    full-FP32 (or f64) matmuls in T's dtype; Oᵀ·T only selects rows, so
+    it is exact."""
+    acc = T.dtype
+    R = torch.bmm(O.to(acc).transpose(1, 2), T)
+    return T - torch.bmm(G.to(acc), R)
 
 
 def _place(Y, krow, n: int):

@@ -7,9 +7,10 @@ pe_synth.h:17595-17625 pass gating) on its own in-memory gate structure
 rather than on the netlist arenas.  This module does the same: extract
 the pure-combinational core of the gate netlist into an index-based DAG,
 optimize it, and re-emit gates.  (The port's copy of the JAX package's
-``verilog/opt_graph.py``, pass for pass; only its mesh-sharded
-equivalence check, ``graphs_equivalent(mesh=...)``, waits for the
-port's ``parallel/`` and raises.)
+``verilog/opt_graph.py``, pass for pass, with the mesh-sharded
+equivalence check ``graphs_equivalent(mesh=...)`` over the port's
+``parallel/tt_mesh.py``; the JAX package's optional verify mesh,
+``PE_TPU_SYNTH_VERIFY_MESH``, is left out.)
 
 4-state discipline: passes in `safe` mode use only Kleene-algebra
 identities that hold for X/Z (associativity, commutativity, absorption,
@@ -1613,19 +1614,107 @@ def _eval_gategraph(g: GateGraph, leaf_words: Dict[int, object],
     return vals
 
 
+def _gategraph_to_tt(g: GateGraph, leaf_row: Dict[int, int],
+                     next_row: int):
+    """Lower a GateGraph to the flat (op, f0, f1) row form of
+    ``native.eval_graph`` / ``parallel.tt_mesh.eval_graph_mesh``,
+    expanding composite ops (NAND/NOR/XNOR/IMP/NIMP/YES) into basic
+    rows.  ``leaf_row`` maps id(net) -> shared leaf row (extended in
+    place so two graphs can share one pattern matrix).  Returns
+    (rows: list[(op, f0, f1)], out_row per graph-output key, next_row).
+    """
+    from ..native import (OP_LEAF, OP_NOT, OP_AND, OP_OR, OP_XOR,
+                          OP_CONST0, OP_CONST1)
+    rows: List[Tuple[int, int, int]] = []
+    row_of: Dict[int, int] = {}
+
+    def alloc(op, a=0, b=0):
+        nonlocal next_row
+        rows.append((op, a, b))
+        r = next_row
+        next_row += 1
+        return r
+
+    for i in _toposort(g, g.live_set()):
+        n = g.nodes[i]
+        if n.op == "PIN":
+            key = id(n.net)
+            if key not in leaf_row:
+                leaf_row[key] = alloc(OP_LEAF)
+            row_of[i] = leaf_row[key]
+            continue
+        if n.op == "CONST":
+            row_of[i] = alloc(OP_CONST1 if n.const == 1 else OP_CONST0)
+            continue
+        f = [row_of[x] for x in n.fanins]
+        if n.op == "AND":
+            row_of[i] = alloc(OP_AND, f[0], f[1])
+        elif n.op == "OR":
+            row_of[i] = alloc(OP_OR, f[0], f[1])
+        elif n.op == "XOR":
+            row_of[i] = alloc(OP_XOR, f[0], f[1])
+        elif n.op == "NAND":
+            row_of[i] = alloc(OP_NOT, alloc(OP_AND, f[0], f[1]))
+        elif n.op == "NOR":
+            row_of[i] = alloc(OP_NOT, alloc(OP_OR, f[0], f[1]))
+        elif n.op == "XNOR":
+            row_of[i] = alloc(OP_NOT, alloc(OP_XOR, f[0], f[1]))
+        elif n.op == "IMP":
+            row_of[i] = alloc(OP_OR, alloc(OP_NOT, f[0]), f[1])
+        elif n.op == "NIMP":
+            row_of[i] = alloc(OP_AND, f[0], alloc(OP_NOT, f[1]))
+        elif n.op == "NOT":
+            row_of[i] = alloc(OP_NOT, f[0])
+        elif n.op == "YES":
+            row_of[i] = row_of[n.fanins[0]]
+        else:  # pragma: no cover
+            raise AssertionError(n.op)
+    outs = {k: row_of[idx] for k, (_, idx) in g.outputs.items()}
+    return rows, outs, next_row
+
+
+def graphs_equivalent_mesh(g0: GateGraph, g1: GateGraph, mesh,
+                           n_words: int = 16384, seed: int = 0) -> bool:
+    """Deep random-vector equivalence with the pattern words sharded
+    over ``mesh`` (a DeviceMesh; ``parallel/tt_mesh.py`` — the
+    reference's multi-GPU TT fan-out role, pe_synth_cuda_u64_cones.cu:
+    671-1860): both graphs over n_words·64 random patterns (2^20 by
+    default), drawn from numpy's ``default_rng(seed)`` as the JAX package
+    draws them, so both packages test the same patterns."""
+    import numpy as np
+    from ..parallel.tt_mesh import eval_graph_mesh
+
+    if set(g0.outputs) != set(g1.outputs):
+        return False
+    leaf_row: Dict[int, int] = {}
+    rows0, outs0, nr = _gategraph_to_tt(g0, leaf_row, 0)
+    rows1, outs1, nr = _gategraph_to_tt(g1, leaf_row, nr)
+    # leaf rows were allocated inside rows0/rows1 in order; flatten
+    all_rows = rows0 + rows1
+    op = np.array([r[0] for r in all_rows], np.int32)
+    f0 = np.array([r[1] for r in all_rows], np.int32)
+    f1 = np.array([r[2] for r in all_rows], np.int32)
+    words = np.zeros((nr, n_words), np.uint64)
+    rng = np.random.default_rng(seed)
+    for _key, row in leaf_row.items():
+        words[row] = rng.integers(0, 1 << 63, n_words, dtype=np.uint64)
+    out = eval_graph_mesh(op, f0, f1, words, mesh)
+    for k in outs0:
+        if not bool((out[outs0[k]] == out[outs1[k]]).all()):
+            return False
+    return True
+
+
 def graphs_equivalent(g0: GateGraph, g1: GateGraph,
                       exhaustive_limit: int = 12,
                       random_words: int = 16, seed: int = 0,
                       mesh=None) -> bool:
     """Binary-domain equivalence of two graphs over the same output
     nets: exhaustive when the combined leaf count is small, else random
-    vectors (the reference's Omax opt-verify scheme).  ``mesh`` (the
-    deep check sharded over devices) is not ported and raises."""
+    vectors (the reference's Omax opt-verify scheme).  With ``mesh`` (a
+    DeviceMesh) the random-vector tier runs deep (16k words = 2^20
+    patterns) sharded over it via ``graphs_equivalent_mesh``."""
     import numpy as np
-    if mesh is not None:
-        raise NotImplementedError(
-            "graphs_equivalent(mesh=...): the mesh-sharded check comes with "
-            "the port's parallel/ (ROADMAP.md queue 1 item 14)")
     leaves: Dict[int, object] = {}
     for g in (g0, g1):
         for n in g.nodes:
@@ -1650,6 +1739,8 @@ def graphs_equivalent(g0: GateGraph, g1: GateGraph,
                 lw[key] = np.where(sel == 1, ~np.uint64(0), np.uint64(0))
         tail = npat if npat < 64 else 0
     else:
+        if mesh is not None:
+            return graphs_equivalent_mesh(g0, g1, mesh, seed=seed)
         n_words = random_words
         rng = np.random.default_rng(seed)
         lw = {key: rng.integers(0, 1 << 63, n_words, dtype=np.uint64)

@@ -38,6 +38,9 @@ holds what the JAX package gives for RV32 at -O2, which the chip smoke
 checks.  ``rv32_of_penl`` finds the core's clock, reset and ports by
 name in a netlist that ``cli.verilog2penl`` wrote and ``io.load`` read.
 
+``rectifier_netlist`` and ``r_ladder_netlist`` are the mesh dry run's
+small circuits (``parallel/dryrun.py``).
+
 ``sar_adc`` / ``sar_convert`` are the port's copy of tests/test_adc.py: a
 ``bits``-bit SAR ADC, synthesized SAR logic driving an R-2R DAC through
 digital drive slots, a comparator closing the loop; ``analyze()`` and
@@ -94,11 +97,14 @@ def build_diode_ladder(n_stages: int = N_STAGES, r: float = R_CHAIN,
 
 
 def diode_ladder_netlist(n_stages: int = N_STAGES, r: float = R_CHAIN,
-                         c: float = C_NODE, n_links: int = 255) -> Netlist:
+                         c: float = C_NODE, n_links: int = 255,
+                         dc: float = None) -> Netlist:
     """The diode ladder's netlist, for ``Circuit(netlist=...)``; its nets
-    in ladder order are ``Netlist.nodes``."""
+    in ladder order are ``Netlist.nodes``.  ``dc``: drive it with a VDC of
+    that voltage instead of the VAC (whose operating point is 0 V)."""
     nl = Netlist()
-    v = netops.add_model(nl, VAC, {"Vp": 2.0, "freq": 1e6})
+    v = (netops.add_model(nl, VAC, {"Vp": 2.0, "freq": 1e6}) if dc is None
+         else netops.add_model(nl, VDC, {"V": float(dc)}))
     nodes = [netops.create_node(nl) for _ in range(n_stages)]
     netops.add_to_node(nl, v, 0, nodes[0])
     netops.add_to_node(nl, v, 1, nl.ground_node)
@@ -117,6 +123,43 @@ def diode_ladder_netlist(n_stages: int = N_STAGES, r: float = R_CHAIN,
         cl = netops.add_model(nl, CAPACITOR, {"C": c})
         netops.add_to_node(nl, cl, 0, nodes[i])
         netops.add_to_node(nl, cl, 1, nl.ground_node)
+    return nl
+
+
+def rectifier_netlist() -> Netlist:
+    """VAC -> series R -> diode -> RC load (the port's copy of
+    ``__graft_entry__._build_rectifier``: nonlinear, a branch, state)."""
+    nl = Netlist()
+    v = netops.add_model(nl, VAC, {"Vp": 5.0, "freq": 1e3})
+    rs = netops.add_model(nl, RESISTANCE, {"r": 100.0})
+    d = netops.add_model(nl, PN_JUNCTION, {})
+    rl = netops.add_model(nl, RESISTANCE, {"r": 10e3})
+    cl = netops.add_model(nl, CAPACITOR, {"C": 1e-6})
+    n_src, n_a, n_o = (netops.create_node(nl) for _ in range(3))
+    for m, pins in ((v, (n_src, nl.ground_node)), (rs, (n_src, n_a)),
+                    (d, (n_a, n_o)), (rl, (n_o, nl.ground_node)),
+                    (cl, (n_o, nl.ground_node))):
+        netops.add_to_node(nl, m, 0, pins[0])
+        netops.add_to_node(nl, m, 1, pins[1])
+    return nl
+
+
+def r_ladder_netlist(n_res: int, r=100.0, v: float = 1.0) -> Netlist:
+    """A VDC across a chain of ``n_res`` resistors to ground; ``r`` is one
+    value or a sequence of ``n_res`` values (the mesh dry run's and the
+    tests' instance-sharding ladders)."""
+    rv = np.broadcast_to(np.asarray(r, np.float64), (n_res,))
+    nl = Netlist()
+    src = netops.add_model(nl, VDC, {"V": float(v)})
+    prev = netops.create_node(nl)
+    netops.add_to_node(nl, src, 0, prev)
+    netops.add_to_node(nl, src, 1, nl.ground_node)
+    for k in range(n_res):
+        res = netops.add_model(nl, RESISTANCE, {"r": float(rv[k])})
+        nxt = nl.ground_node if k == n_res - 1 else netops.create_node(nl)
+        netops.add_to_node(nl, res, 0, prev)
+        netops.add_to_node(nl, res, 1, nxt)
+        prev = nxt
     return nl
 
 
@@ -386,6 +429,123 @@ def synth_counts(design: str, opt_level: int = 1, binary: bool = False,
     sec = time.perf_counter() - t0
     counts, logic = device_counts(c.nl)
     return Synth(c, ins, pn, rep, counts, logic, sec)
+
+
+# binary-domain functions of the combinational macro devices, as gates:
+# out pin -> expression over the input pins (see comb_graph)
+_MACROS = {
+    "HALF_ADDER": {"s": ("XOR", "ia", "ib"), "c": ("AND", "ia", "ib")},
+    "FULL_ADDER": {
+        "s": ("XOR", ("XOR", "ia", "ib"), "cin"),
+        "cout": ("OR", ("AND", "ia", "ib"),
+                 ("AND", "cin", ("XOR", "ia", "ib")))},
+    "HALF_SUBTRACTOR": {"d": ("XOR", "ia", "ib"), "b": ("NIMP", "ib", "ia")},
+    "FULL_SUBTRACTOR": {
+        "d": ("XOR", ("XOR", "ia", "ib"), "bin"),
+        "bout": ("OR", ("NIMP", "ib", "ia"),
+                 ("AND", "bin", ("XNOR", "ia", "ib")))},
+    "MUL2": {
+        "p0": ("AND", "a0", "b0"),
+        "p1": ("XOR", ("AND", "a1", "b0"), ("AND", "a0", "b1")),
+        "p2": ("XOR", ("AND", "a1", "b1"),
+               ("AND", ("AND", "a1", "b0"), ("AND", "a0", "b1"))),
+        "p3": ("AND", ("AND", "a1", "b1"),
+               ("AND", ("AND", "a1", "b0"), ("AND", "a0", "b1")))},
+}
+_GATES = ("AND", "OR", "XOR", "XNOR", "NAND", "NOR", "IMP", "NIMP", "NOT",
+          "YES")
+
+
+def comb_graph(nl: Netlist, outputs, key=id, names=None):
+    """The binary-domain combinational function of a gate netlist as an
+    ``opt_graph.GateGraph``: logic gates and the adder / subtractor / MUL2
+    macros become graph gates, a synthesis-constant INPUT a constant, and
+    every other net (a real INPUT's, a flip-flop's output) a leaf.
+    ``outputs``: the nets whose cones the graph holds.  ``key(net)`` names
+    leaves and outputs, and ``names`` (a dict passed to both calls) holds
+    one stand-in net per name, so the graphs of two netlists of one design
+    (two optimization levels) share leaves and outputs and compare with
+    ``graphs_equivalent``."""
+    from .verilog.opt_graph import GateGraph
+
+    names = {} if names is None else names
+
+    def name(net):
+        return names.setdefault(key(net), _NamedNet(key(net)))
+
+    driver = {}
+    for inst in nl.live_models():
+        op = inst.mdef.digital_op
+        if op in _GATES or op in _MACROS or op == "INPUT":
+            for k in inst.mdef.dout_pins:
+                node = inst.pins[k].node
+                if node is not None:
+                    driver[id(node)] = (inst, inst.mdef.pins[k])
+    g = GateGraph()
+    done: Dict[int, int] = {}
+
+    def expr(inst, e):
+        if isinstance(e, str):
+            return net_node(inst.pins[inst.mdef.pins.index(e)].node)
+        return g.gate(e[0], *[expr(inst, a) for a in e[1:]])
+
+    def net_node(net):
+        if id(net) in done:
+            return done[id(net)]
+        d = driver.get(id(net))
+        if d is None:
+            idx = g.leaf(name(net))
+        else:
+            inst, pin = d
+            op = inst.mdef.digital_op
+            if op == "INPUT":
+                idx = (g.const(int(inst.params.get("boolean", 2)))
+                       if inst.params.get("synth_const") else
+                       g.leaf(name(net)))
+            elif op in _MACROS:
+                idx = expr(inst, _MACROS[op][pin])
+            else:
+                ins = [net_node(inst.pins[k].node)
+                       for k in inst.mdef.din_pins]
+                idx = ins[0] if op == "YES" else g.gate(op, *ins)
+        done[id(net)] = idx
+        return idx
+
+    import sys
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 100_000))
+    try:
+        for net in outputs:
+            g.set_output(name(net), net_node(net))
+    finally:
+        sys.setrecursionlimit(limit)
+    return g
+
+
+class _NamedNet:
+    """A stand-in net of ``comb_graph``, named by its key."""
+
+    def __init__(self, key):
+        self.key = key
+
+
+def ff_cone_outputs(nl: Netlist, ports) -> List:
+    """The nets a sequential design's next state and outputs depend on:
+    every flip-flop / latch input net, then the given port nets."""
+    outs, seen = [], set()
+    for inst in nl.live_models():
+        if inst.mdef.digital_op in ("DFF", "DFF_ARSTN", "DLATCH", "JKFF",
+                                    "TFF", "TBARFF"):
+            for k in inst.mdef.din_pins:
+                node = inst.pins[k].node
+                if node is not None and id(node) not in seen:
+                    seen.add(id(node))
+                    outs.append(node)
+    for net in ports:
+        if id(net) not in seen:
+            seen.add(id(net))
+            outs.append(net)
+    return outs
 
 
 class Rv32(NamedTuple):

@@ -19,7 +19,7 @@ import phy_engine_tpu as jpe
 import phy_engine_tpu_torch as tpe
 
 from torch_circuit_cases import analyze_both, assert_same_solution, both
-from torch_circuits import divider, unported_routes_raise
+from torch_circuits import divider, mesh_routes_run
 
 torch.set_num_threads(1)
 
@@ -176,4 +176,6 @@ def test_warm_restart_from_node_voltages():
 
 
 def test_unported_routes_raise_naming_their_item():
-    assert unported_routes_raise("cpu") == 4
+    """The mesh routes that raised before ``parallel/`` was ported now run
+    on a one-rank gloo mesh and agree with the local routes (name kept)."""
+    assert mesh_routes_run("cpu") == 4

@@ -39,7 +39,7 @@ import phy_engine_tpu_torch as tpe
 from phy_engine_tpu_torch.engine import circuit as tcircuit
 
 from torch_circuits import (build, build_port, diode_load, divider,
-                            unported_routes_raise)
+                            mesh_routes_run)
 import bsim3_cases
 import torch_digital_cases as dc
 
@@ -600,7 +600,9 @@ def test_circuit_defaults_to_the_card(cuda):
 
 @pytest.mark.cuda
 def test_circuit_unported_routes_raise_on_the_card(cuda):
-    assert unported_routes_raise(cuda) == 4
+    """The mesh routes on a one-rank NCCL mesh agree with the local routes
+    (name kept from when they raised)."""
+    assert mesh_routes_run(cuda) == 4
 
 
 # ---------------------------------------------------------------------------

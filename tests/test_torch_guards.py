@@ -44,12 +44,35 @@ def test_port_imports_no_jax():
         "          'digital.engine', 'digital.flash', 'digital.ir',\n"
         "          'models.verilog_module', 'ops.sparse', 'ops.tridiag',\n"
         "          'verilog.opt_graph', 'verilog.opt_map', 'native',\n"
-        "          'digital.native_run'):\n"
+        "          'digital.native_run', 'parallel.mesh', 'parallel.dist_gj',\n"
+        "          'parallel.dist_newton', 'parallel.tt_mesh',\n"
+        "          'parallel.dryrun'):\n"
         "    assert 'phy_engine_tpu_torch.' + m in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'phy_engine_tpu', 'triton'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_make_mesh_on_cuda_raises_without_a_card():
+    """make_mesh(device_type="cuda") without a card raises and starts no
+    process group: it never falls back to gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    code = (
+        "import torch.distributed as dist\n"
+        "from phy_engine_tpu_torch.parallel.mesh import make_mesh\n"
+        "try:\n"
+        "    make_mesh(device_type='cuda')\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('make_mesh(cuda) returned a mesh')\n"
+        "assert not dist.is_initialized(), dist.get_backend()\n"
+        "m = make_mesh(device_type='cpu')\n"
+        "assert dist.get_backend() == 'gloo' and m.device_type == 'cpu'\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
 

@@ -210,9 +210,13 @@ def test_graphs_equivalent_matches_jax():
         assert og.graphs_equivalent(g0, g2)      # ~(a NAND b) == a & b
         assert og.graphs_equivalent(*_wide_pair(og))
         assert not og.graphs_equivalent(*_wide_pair(og, flip=True))
-    g0, _g1, g2 = _and_pair(tog)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tog.graphs_equivalent(g0, g2, mesh=object())
+    # the deep check on a one-rank gloo mesh gives the same verdicts
+    from phy_engine_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(device_type="cpu")
+    assert tog.graphs_equivalent(*_wide_pair(tog), exhaustive_limit=0,
+                                 mesh=mesh)
+    assert not tog.graphs_equivalent(*_wide_pair(tog, flip=True),
+                                     exhaustive_limit=0, mesh=mesh)
 
 
 def _adder_graph(og, bits=4):

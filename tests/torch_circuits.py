@@ -10,7 +10,7 @@ use.
 
 from types import SimpleNamespace
 
-import pytest
+import torch
 
 import phy_engine_tpu_torch as tpe
 from phy_engine_tpu_torch.engine import circuit as tcircuit
@@ -132,23 +132,27 @@ def mesh_mna(c):
     return sp.csr_matrix((vals, (rows, cols)), shape=(n, n)), rhs
 
 
-def _unported(b):
-    c, dev = b.c, b.c.device
-    yield "14", lambda: tpe.Circuit(mesh=object(), device=dev)
-    yield "14", lambda: c.dc_sweep(b.devs["v"], "V", [1.0], mesh=object())
-    yield "14", lambda: c.temp_sweep([1.0], mesh=object())
-    yield "14", lambda: c.monte_carlo({}, 2, mesh=object())
-
-
-def unported_routes_raise(device) -> int:
-    """Each route the port does not take yet raises NotImplementedError
-    naming its ROADMAP item; none falls back to another solver or
-    device.  Returns the number of routes held."""
-    b = build_port(divider(), device)
-    b.c.set_analyze_type(b.mod.AnalyzeType.OP)
-    assert b.c.analyze()
-    routes = list(_unported(b))
-    for item, call in routes:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            call()
-    return len(routes)
+def mesh_routes_run(device) -> int:
+    """The routes that take ``mesh=`` run on a one-rank mesh of
+    ``device``'s type (NCCL on a card, gloo on the CPU) and agree with the
+    local route: ``Circuit(mesh=)`` OP through the distributed Newton and
+    the three sweeps with ``mesh=``.  Returns the number of routes held."""
+    from phy_engine_tpu_torch.parallel.mesh import make_mesh
+    import numpy as np
+    mesh = make_mesh(device_type=torch.device(device).type)
+    local = build_port(divider(), device)
+    local.c.set_analyze_type(local.mod.AnalyzeType.OP)
+    assert local.c.analyze()
+    m = build_port(divider(), device, mesh=mesh)
+    m.c.set_analyze_type(m.mod.AnalyzeType.OP)
+    assert m.c.analyze()
+    assert np.isclose(m.nodes["mid"].voltage.real, 3.0, rtol=1e-12)
+    routes = [(lambda c, **kw: c.dc_sweep(
+                   c.nl.live_models()[0], "V", [1.0, 4.0], **kw).x),
+              (lambda c, **kw: c.temp_sweep([0.0, 27.0, 80.0], **kw).x),
+              (lambda c, **kw: c.monte_carlo(
+                  {"R": {"r": 0.1}}, 3,
+                  generator=torch.Generator().manual_seed(1), **kw).x)]
+    for run in routes:
+        assert np.array_equal(run(m.c, mesh=mesh), run(local.c))
+    return 1 + len(routes)

@@ -37,6 +37,7 @@ from ..ops.gj import pow2_recip_floor as _pow2_recip_floor
 from ..ops.linsolve import dense_solve, lu_solve_gauss
 from ..ops.lu_block import lu_block_inverse32
 from ..ops.sparse import COOLayout, bicgstab
+from ..trace import host_read, spanned
 from .lower import AnalogIR
 
 MAX_NEWTON_ITER = 64      # circuit.h:898
@@ -287,6 +288,7 @@ def _merge(take, old, new):
 # sparse (COO) assembly
 # ---------------------------------------------------------------------------
 
+@spanned("pe.assemble")
 def assemble_sparse(ir: AnalogIR, params, x, states, ctx: StampCtx,
                     drives=None, stamp=None):
     """COO values + RHS for the batch.
@@ -412,6 +414,7 @@ def coo_layout(ir: AnalogIR, drives=None) -> COOLayout:
     return _cached(ir, ("coo_layout", node.tobytes()), build)
 
 
+@spanned("pe.newton_solve")
 def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
                  max_iter: int = MAX_NEWTON_ITER, drives=None,
                  method: str = "dense", stamp=None):
@@ -451,7 +454,7 @@ def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
     ok = torch.ones_like(conv)
     for _ in range(max_iter):
         run = (~conv) & ok
-        if not bool(run.any()):
+        if not host_read(run.any(), "newton_run"):
             break
         x_new, st2, ok_new = solve_once(x, st)
         conv_new = _converged(x, x_new, ir.n_nodes, ctx.env) & ok_new
@@ -517,7 +520,7 @@ def transient_adaptive(ir: AnalogIR, params, x0, states0, env, t0, dt0,
             ir, params, x, st2, StampCtx(mode="tr", t=t_new, dt=dt_eff,
                                          env=env), drives=drives,
             method=method)
-        ok = bool(ok_t[0])
+        ok = host_read(ok_t[0], "tr_adaptive_ok")
         if ok:
             x, st, t = x_new, st3, t_new
             dt = min(dt * 2.0, dt0)
@@ -711,7 +714,7 @@ def newton_solve_batched(ir: AnalogIR, params_b, x0_b, states0_b,
     # linear circuits still need 2 delta iterations (solve + refinement)
     out = _newton_loop_batched(ir, params_b, x0_b, states0_b, ctx,
                                solve_once, max_iter, linear_iters=2)
-    if solver == "delta" or bool(out[2].all()):
+    if solver == "delta" or host_read(out[2].all(), "newton_batched_ok"):
         return out
     return gauss_path()
 
@@ -732,7 +735,8 @@ def _newton_loop_batched(ir, params_b, x0_b, states0_b, ctx, solve_once,
     conv = torch.zeros(B, dtype=torch.bool, device=x0_b.device)
     ok = torch.ones(B, dtype=torch.bool, device=x0_b.device)
     it = 0
-    while it < max_iter and bool(((~conv) & ok).any()):
+    while it < max_iter and host_read(((~conv) & ok).any(),
+                                      "newton_batched_run"):
         active = (~conv) & ok
         x_new, st2, ok_new = solve_once(x, st)
         conv_new = _converged(x, x_new, ir.n_nodes, ctx.env) & ok_new
@@ -913,7 +917,8 @@ def newton_solve_frozen(ir: AnalogIR, params_b, x0_b, states0_b,
     Minv, rs, cs, tol, valid = fac
     last = 0
     prev_rn = torch.full((B,), torch.inf, dtype=F64, device=dev)
-    while it < max_iter and bool(((~conv) & ok).any()):
+    while it < max_iter and host_read(((~conv) & ok).any(),
+                                      "frozen_run"):
         active = (~conv) & ok
         r, st2, vals, Zf = _frozen_resid_cached(ir, params_b, x, st, ctx,
                                                 cache)
@@ -923,9 +928,9 @@ def newton_solve_frozen(ir: AnalogIR, params_b, x0_b, states0_b,
         # outright residual growth in any active lane = burst (fresh
         # direct solve, carry invalidated)
         grew = active & (rn > FROZEN_RATE * prev_rn)
-        n_act, n_grew, n_burst = torch.stack([
+        n_act, n_grew, n_burst = host_read(torch.stack([
             active.sum(), grew.sum(), (active & (rn > prev_rn)).sum()
-        ]).tolist()
+        ]), "frozen_policy")
         burst = n_burst > 0
         frac_grew = n_grew / max(n_act, 1)
         need = ((not valid) or it == 0 or it - last >= FROZEN_STALL
@@ -937,7 +942,7 @@ def newton_solve_frozen(ir: AnalogIR, params_b, x0_b, states0_b,
             # full refactor when too many active lanes sit outside the
             # basin (the Jacobian moved a lot, e.g. diode switching)
             X2, e = _ns_refresh(Minv, _dense_stale32(ir, vals, rs, cs, npad))
-            n_bad = int(((e >= 0.9) & active).sum())
+            n_bad = host_read(((e >= 0.9) & active).sum(), "frozen_basin")
             if n_bad / max(n_act, 1) > FROZEN_BAD_FRAC:
                 Minv, rs, cs, tol, last = refac(vals, Zf, x, it)
             else:
@@ -1010,7 +1015,7 @@ def transient_batched(ir: AnalogIR, params_b, x0_b, states0_b, env, t0,
             x_new, st2, ok, fac = newton_solve_frozen(
                 ir, params_b, x, st, ctx, fac=fac, max_iter=max_iter,
                 inv=inv)
-            if not bool(ok.all()):
+            if not host_read(ok.all(), "tr_rescue"):
                 x_r, st_r, ok_r = newton_solve_batched(
                     ir, params_b, x, st, ctx, max_iter=max_iter,
                     solver="hybrid")

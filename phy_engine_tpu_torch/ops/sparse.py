@@ -45,6 +45,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..trace import count, host_read, span, spanned, sync_site
+
 CHECK_EVERY = 8      # iterations between host reads of the stop condition
 _ORDERED_MAX = 8     # rows up to this wide sum strictly left to right
 
@@ -168,6 +170,7 @@ class COOLayout:
             self._cols[device] = torch.as_tensor(self._cols_np, device=device)
         return self._cols[device]
 
+    @spanned("pe.coo_matvec")
     def matvec(self, vals, x):
         """y = A x; x (..., n), vals (nnz,) or (..., nnz)."""
         return self.rows.sum(vals * _ext(x)[..., self.cols(x.device)])
@@ -367,7 +370,8 @@ def _krylov(mv, minv, x, r0, max_iter, stop, tiny, done=None):
     iterations, ok)."""
     B, n = r0.shape
     dt, dev = r0.dtype, r0.device
-    h = shadow(n, dt, dev)
+    with sync_site("shadow"):            # a copy from pageable host memory
+        h = shadow(n, dt, dev)
     r_hat = h * _norm(r0).clamp(min=tiny)[:, None] / _norm(h)
     rho = _dot(r_hat, r0)
     r, p = r0, r0
@@ -377,34 +381,40 @@ def _krylov(mv, minv, x, r0, max_iter, stop, tiny, done=None):
     ok = torch.ones(B, dtype=torch.bool, device=dev)
     k = 0
     while k < max_iter:
-        for _ in range(min(CHECK_EVERY, max_iter - k)):
-            run = (~done) & ok & (it < max_iter)
-            p_hat = minv * p
-            v = mv(p_hat)
-            alpha = rho / _safe(_dot(r_hat, v), tiny)
-            s = r - alpha[:, None] * v
-            s_hat = minv * s
-            t = mv(s_hat)
-            omega = _dot(t, s) / _safe(_dot(t, t), tiny)
-            x_new = x + alpha[:, None] * p_hat + omega[:, None] * s_hat
-            r_new = s - omega[:, None] * t
-            rho_new = _dot(r_hat, r_new)
-            beta = (rho_new / _safe(rho, tiny)) * (alpha / _safe(omega, tiny))
-            p_new = r_new + beta[:, None] * (p - omega[:, None] * v)
-            run2 = run[:, None]
-            x = torch.where(run2, x_new, x)
-            r = torch.where(run2, r_new, r)
-            p = torch.where(run2, p_new, p)
-            rho = torch.where(run, rho_new, rho)
-            done = torch.where(run, stop(r_new), done)
-            ok = torch.where(run, torch.isfinite(x_new).all(-1), ok)
-            it = it + run.to(it.dtype)
-            k += 1
-        if not bool(((~done) & ok & (it < max_iter)).any()):
+        with span("pe.bicgstab.burst"):
+            for _ in range(min(CHECK_EVERY, max_iter - k)):
+                run = (~done) & ok & (it < max_iter)
+                p_hat = minv * p
+                v = mv(p_hat)
+                alpha = rho / _safe(_dot(r_hat, v), tiny)
+                s = r - alpha[:, None] * v
+                s_hat = minv * s
+                t = mv(s_hat)
+                omega = _dot(t, s) / _safe(_dot(t, t), tiny)
+                x_new = (x + alpha[:, None] * p_hat
+                         + omega[:, None] * s_hat)
+                r_new = s - omega[:, None] * t
+                rho_new = _dot(r_hat, r_new)
+                beta = ((rho_new / _safe(rho, tiny))
+                        * (alpha / _safe(omega, tiny)))
+                p_new = r_new + beta[:, None] * (p - omega[:, None] * v)
+                run2 = run[:, None]
+                x = torch.where(run2, x_new, x)
+                r = torch.where(run2, r_new, r)
+                p = torch.where(run2, p_new, p)
+                rho = torch.where(run, rho_new, rho)
+                done = torch.where(run, stop(r_new), done)
+                ok = torch.where(run, torch.isfinite(x_new).all(-1), ok)
+                it = it + run.to(it.dtype)
+                k += 1
+        if not host_read(((~done) & ok & (it < max_iter)).any(),
+                         "bicgstab_stop"):
             break
+    count("bicgstab.iterations_launched", k)
     return x, it, ok
 
 
+@spanned("pe.bicgstab")
 def bicgstab(rows, cols, vals, b, n: int, x0=None, tol: float = 1e-10,
              max_iter: int = 400, diag_floor: float = 1e-9,
              layout: COOLayout = None):
@@ -468,7 +478,7 @@ def bicgstab_ell(ell, vals, b, x0=None, tol: float = 1e-10,
         r64 = b2 - ell.matvec(vm64, x)
         r_norm = _norm(r64)
         need = r_norm / bnorm >= tol
-        if not bool(need.any()):
+        if not host_read(need.any(), "bicgstab_ell_refine"):
             break
         # the correction's system is solved for the unit-norm residual
         # and scaled back: BiCGStab is scale-invariant, and a residual

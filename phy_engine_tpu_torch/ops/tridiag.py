@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..trace import span, spanned, sync_site
+
 
 def _shift_down(a, s, fill):
     """out[i] = a[i-s] (out[:s] = fill)."""
@@ -51,12 +53,15 @@ def _shift_up(a, s, fill):
 
 def _edges_zeroed(dl, du):
     a = dl.clone()
-    a[..., 0] = 0.0
+    with sync_site("tridiag_edge"):      # a scalar's copy to the device
+        a[..., 0] = 0.0
     c = du.clone()
-    c[..., -1] = 0.0
+    with sync_site("tridiag_edge"):
+        c[..., -1] = 0.0
     return a, c
 
 
+@spanned("pe.pcr")
 def tridiag_solve(dl, d, du, b):
     """Solve T x = b for tridiagonal T (sub dl, diag d, super du) by PCR.
 
@@ -500,6 +505,7 @@ def spike_border_solve(fac, t_e, ete, z, e, rhs_b, refine: int = 2):
     return v, i
 
 
+@spanned("pe.border_solve")
 def border_solve(dl, d, du, z, e, rhs_b, refine: int = 2):
     """Solve the bordered system [T e; e^T 0] [v; i] = [z; rhs_b] (one
     voltage-source branch over a tridiagonal MNA core) by the Schur
@@ -516,9 +522,10 @@ def border_solve(dl, d, du, z, e, rhs_b, refine: int = 2):
 
     v, i = base(z, rhs_b)
     for _ in range(refine):
-        r1 = z - tridiag_matvec(dl, d, du, v) - e * i[..., None]
-        r2 = rhs_b - (e * v).sum(-1)
-        dv, di = base(r1, r2)
-        v = v + dv
-        i = i + di
+        with span("pe.refine"):
+            r1 = z - tridiag_matvec(dl, d, du, v) - e * i[..., None]
+            r2 = rhs_b - (e * v).sum(-1)
+            dv, di = base(r1, r2)
+            v = v + dv
+            i = i + di
     return v, i

@@ -1,0 +1,92 @@
+"""The port's program spans and counters.
+
+* ``span(name)`` marks a stretch of the host's work.  Under an active
+  ``torch.profiler`` session it is a ``record_function`` range, so it
+  lands on the profiler's timeline, on the same clock as the CUDA
+  activity: every device operation and every idle stretch of the device
+  can be set against what the host was doing then.  With no profiler it
+  is one cheap check and a shared no-op context.  Spans are on exactly
+  when someone profiles; there is no switch.
+* ``count(name, n)`` adds to a host-side integer counter (always on; it
+  never reads a tensor).  ``counters()`` is a snapshot of every counter,
+  together with the launch counters of the hand-written kernels, which
+  stay attributes of their wrappers.
+* ``host_read(t, site)`` is an explicit read of the device (what
+  ``t.tolist()``, ``bool(t)`` or ``t.item()`` return) inside the span
+  ``pe.sync.<site>``, counted in ``host_syncs``; ``sync_site(site)`` is
+  the same span and count around any other call that waits for the
+  device (a copy from pageable host memory, a scalar written into a
+  tensor).  The count is of sites passed: on a CUDA tensor each waits
+  for the device, on a CPU tensor none does.
+
+Spans at the layer boundaries (nested as the host's calls):
+``pe.newton_solve`` > ``pe.assemble``, ``pe.bicgstab`` >
+``pe.bicgstab.burst`` > ``pe.coo_matvec``, ``pe.sync.*``;
+``pe.border_solve`` > ``pe.refine`` > ``pe.pcr``.  Counters:
+``host_syncs``; ``bicgstab.iterations_launched`` (iterations that every
+lane of a BiCGStab call ran on the device, stopped lanes included).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+from collections import Counter
+
+import torch
+
+_NULL = contextlib.nullcontext()
+_COUNTS: Counter = Counter()
+_LOCK = threading.Lock()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function`` range under an active profiler, else a
+    shared no-op context."""
+    if not _profiling():
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    with _LOCK:
+        _COUNTS[name] += n
+
+
+def counters() -> dict:
+    """{name: count} of every counter, and the kernels' launches."""
+    from .digital.turbo import run_turbo
+    from .ops.gj import gj_inverse32, gj_solve32
+    from .ops.lu_block import lu_block_inverse32
+    with _LOCK:
+        out = dict(_COUNTS)
+    for fn in (gj_solve32, gj_inverse32, lu_block_inverse32, run_turbo):
+        out[f"{fn.__name__}.launches"] = fn.launches
+    return out
+
+
+def sync_site(site: str):
+    """Span ``pe.sync.<site>`` and one ``host_syncs`` around a call that
+    waits for the device."""
+    count("host_syncs")
+    return span(f"pe.sync.{site}")
+
+
+def host_read(t: torch.Tensor, site: str):
+    """``t.tolist()`` (a Python scalar for a 0-d tensor: what ``bool``,
+    ``int`` or ``.item()`` give) inside ``sync_site(site)``."""
+    with sync_site(site):
+        return t.tolist()

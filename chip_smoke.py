@@ -9,8 +9,8 @@ Phases (each prints one line; any failure raises, exit code non-zero):
 0. device   — a CUDA card is required (no CPU fallback); its name and
               power limit from nvidia-smi.
 1. build    — nvcc builds the hand-written kernels of
-              phy_engine_tpu_torch/ops/csrc (gj.cu, lu_block.cu, turbo.cu;
-              one nvcc per source, all at once; into build/, at first
+              phy_engine_tpu_torch/ops/csrc (gj.cu, lu_block.cu, turbo.cu,
+              coo_spmm.cu; one nvcc per source, all at once; into build/, at first
               use), and prints ptxas's register / shared-memory lines for
               each kernel.
 2. kernels  — each inverse / solve kernel (gj_inverse32, gj_solve32,
@@ -275,8 +275,18 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               combinational graph at 2^17 patterns bit-identical to
               native.eval_graph on the host.  Each part prints its wall.
 
-16. sparse Circuit — the Circuit driver's sparse route (COO assembly and
-              the f64 Jacobi BiCGStab of ops/sparse.py, torch ops) on
+16. sparse Circuit — first the COO product kernel (coo_spmm,
+              csrc/coo_spmm.cu) at the mesh100k.dc cell's shape: B = 64
+              lanes of values on the 100,001-unknown random-link mesh
+              (torch_circuits.random_link_mesh_ir, 10,000 links; 540,001
+              entries in range) against the plain twin
+              (COOLayout.matvec_plain) on the same card tensors, bit for
+              bit on rows up to 8 entries wide and within 1e-12 of max|y|
+              elsewhere, a repeat bit-identical, its time and the plain
+              twin's (CUDA events) beside its bytes bound.  Then the
+              Circuit driver's sparse route (COO assembly and the f64
+              Jacobi BiCGStab of ops/sparse.py, its products through
+              coo_spmm, whose launches are counted for the kernels line) on
               workloads.random_mesh_netlist at 100,000 nodes and 400,000
               links (tests/test_sparse.py's generator), solver "auto": (a)
               DC; (b) with a PN_JUNCTION from node 1 to ground (Newton);
@@ -318,7 +328,8 @@ Phases (each prints one line; any failure raises, exit code non-zero):
 
 Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements (the GJ pair also at phase 12's shape, "...@256x128", with
-phase 12's launches), and, last, {"ok": true, "device": {...}}.
+phase 12's launches; coo_spmm with phase 16's), and, last, {"ok": true,
+"device": {...}}.
 """
 
 import copy
@@ -340,7 +351,7 @@ from phy_engine_tpu_torch import (ACSweepType, AnalyzeType, Circuit,
                                   Environment, workloads)
 from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
-from phy_engine_tpu_torch.ops import _build, gj, linsolve, lu_block
+from phy_engine_tpu_torch.ops import _build, gj, linsolve, lu_block, sparse
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
 from phy_engine_tpu_torch.parallel.batch import (batch_params, batch_state,
                                                  batch_x, batched_op,
@@ -373,6 +384,10 @@ CASES = ("random", "mna_border", "singular", "block_singular")
 TURBO = dict(name="turbo_tick", wrapper=turbo.run_turbo,
              source="phy_engine_tpu_torch/ops/csrc/turbo.cu",
              replaces="phy_engine_tpu/digital/turbo.py:665")
+COO = dict(name="coo_spmm", wrapper=sparse.coo_spmm,
+           source="phy_engine_tpu_torch/ops/csrc/coo_spmm.cu",
+           replaces="none (phy_engine_tpu/ops/sparse.py:28 coo_matvec, "
+                    "fused by XLA)")
 TRACE_TOL = 1e-6
 AT128 = "@256x128"      # the GJ pair at phase 12's shape, (B, n) = (256, 128)
 
@@ -383,6 +398,8 @@ AT128 = "@256x128"      # the GJ pair at phase 12's shape, (B, n) = (256, 128)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 INT32_OPS = 132 * 64 * 1.98e9
+# FP64 on the CUDA cores (the same data sheet; an FMA counts two)
+FP64_FLOPS = 34e12
 
 
 def check(cond, what):
@@ -2434,14 +2451,65 @@ def cg_oracle(c):
     return v, float(res)
 
 
+def coo_spmm_kernel(dev, smi, lanes=64, reps=20):
+    """Phase 16's first part: coo_spmm against the plain twin at the
+    mesh100k.dc cell's shape (see the module docstring).  Returns the
+    kernel's measurements for the kernels line."""
+    from torch_circuits import random_link_mesh_ir
+    lay = analog.coo_layout(random_link_mesh_ir(100_000, 10_000))
+    n, nnz = lay.n, lay.perm.size
+    check((n, nnz) == (100_001, 540_001) and lay.wide.size == 0,
+          f"the mesh cell's pattern: {n} unknowns, {nnz} entries in range, "
+          f"{lay.wide.size} wide rows")
+    g = torch.Generator(device=dev).manual_seed(16)
+    vals = torch.randn((lanes, lay.nnz), generator=g, device=dev,
+                       dtype=torch.float64)
+    x = torch.randn((lanes, n), generator=g, device=dev, dtype=torch.float64)
+    prod = lay.bind(vals)
+    y, y2 = prod(x), prod(x)
+    plain = lay.matvec_plain(vals, x)
+    narrow = torch.as_tensor(np.diff(lay.rowptr) <= 8, device=dev)
+    check(torch.equal(y, y2), "coo_spmm: a repeat run is not bit-identical")
+    check(torch.equal(y[:, narrow], plain[:, narrow]), "coo_spmm differs "
+          "from the plain twin on rows up to 8 entries wide")
+    err = float((y - plain).abs().max())
+    scale = float(plain.abs().max())
+    check(err <= 1e-12 * scale, f"coo_spmm vs the plain twin {err:.3e} > "
+          f"1e-12 of max|y| {scale:.3e}")
+    t = [time_ms(lambda: lay.matvec_plain(vals, x), reps),
+         time_ms(lambda: prod(x), reps), time_ms(lambda: prod(x), reps),
+         time_ms(lambda: lay.matvec_plain(vals, x), reps)]
+    # the least bytes of a pass: the values and x read once, y written
+    # once, the pattern (rowptr, columns; int32) read once
+    nbytes = 8 * lanes * (nnz + 2 * n) + 4 * (n + 1 + nnz)
+    r = {"max_abs_err": err, "ms": (t[1] + t[2]) / 2,
+         "plain_ms": (t[0] + t[3]) / 2, "library_ms": None}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, 2 * lanes * nnz, FP64_FLOPS)
+    say(16, f"coo_spmm at (B, n) = ({lanes}, {n}), {nnz} entries: "
+        f"{r['ms']:.4f} ms a product ({100 * r['bound_ms'] / r['ms']:.1f} % "
+        f"of its {r['bound_ms']:.4f} ms {r['bound_by']} bound, "
+        f"{nbytes / 1e6:.1f} MB), plain twin {r['plain_ms']:.4f} ms "
+        f"(P C C P: {', '.join(f'{v:.4f}' for v in t)}) on {smi}; max "
+        f"|y - plain| {err:.3e} of max|y| {scale:.3e}, rows <= 8 wide bit "
+        "for bit, repeat bit-identical")
+    return r
+
+
 def phase16_mesh(dev, smi, cpu_run):
     """The Circuit sparse route at 100k nodes (see the module docstring,
     phase 16).  ``cpu_run``: the future of mesh_sequence("cpu",
-    MESH_CPU_STEPS)."""
+    MESH_CPU_STEPS).  Returns coo_spmm's measurements (``coo_spmm_kernel``)
+    and its launches on the main path."""
+    r = coo_spmm_kernel(dev, smi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sparse.coo_spmm.launches = 0
     card = mesh_sequence(dev, oracle=True)
+    n_coo = sparse.coo_spmm.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    iters = sum(sum(card["iters"][tag]) for tag in ("a", "b", "c"))
+    check(n_coo >= 2 * iters, f"mesh: {n_coo} coo_spmm launches for "
+          f"{iters} BiCGStab iterations (two products an iteration)")
     n = card["n"]
     for tag, what in (("a", "DC"), ("b", "DC with the diode"),
                       ("c", f"TR {MESH_STEPS} steps")):
@@ -2490,7 +2558,11 @@ def phase16_mesh(dev, smi, cpu_run):
             f"port on the CPU: {err:.3e} of max|x| (CPU analyze() "
             f"{host['sec'][tag]:.2f} s, {sum(host['iters'][tag])} "
             "iterations, another process)")
-    say(16, f"peak device memory {peak:.0f} MiB on {smi}")
+    say(16, f"peak device memory {peak:.0f} MiB on {smi}; coo_spmm "
+        f"launches {n_coo} ({iters} BiCGStab iterations), x "
+        f"{r['ms']:.4f} ms = {n_coo * r['ms'] / 1e3:.4f} s at the mesh "
+        "cell's shape")
+    return r, n_coo
 
 
 def phase17_ladder(dev, smi):
@@ -2612,7 +2684,8 @@ def phase19_sparse_mesh(dev, smi, splu_run, links_cases=(10_000, 1_000)):
 def large_systems(dev, smi):
     """Phases 16-19.  The CPU references run beside them in processes of
     their own — phase 16's sequence on the CPU and phase 19's scipy
-    SparseLU (minutes at L = 10^4) — which a failure terminates."""
+    SparseLU (minutes at L = 10^4) — which a failure terminates.  Returns
+    phase 16's (coo_spmm measurements, launches)."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"))
@@ -2625,8 +2698,11 @@ def large_systems(dev, smi):
                                 (19, phase19_sparse_mesh,
                                  (dev, smi, splu_run))):
             t0 = time.perf_counter()
-            fn(*args)
+            out = fn(*args)
+            if phase == 16:
+                p16 = out
             say(phase, f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+        return p16
     except BaseException:
         for proc in list((pool._processes or {}).values()):
             proc.terminate()
@@ -2814,15 +2890,15 @@ def main():
     # phases 16-19: large systems.  The CPU references run beside them in
     # processes of their own: phase 16's sequence on the CPU and phase
     # 19's scipy SparseLU (minutes at L = 10^4)
-    large_systems(dev, smi)
+    results[COO["name"]], launches[COO["name"]] = large_systems(dev, smi)
 
     print(smi)
     meta = {k: dict(source=v["source"], replaces=v["replaces"])
             for k, v in KERNELS.items()}
     for name in launches12:
         meta[name + AT128] = meta[name]
-    meta[TURBO["name"]] = dict(source=TURBO["source"],
-                               replaces=TURBO["replaces"])
+    for k in (TURBO, COO):
+        meta[k["name"]] = dict(source=k["source"], replaces=k["replaces"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name]["source"],
          "replaces": meta[name]["replaces"], "launches": launches[name],

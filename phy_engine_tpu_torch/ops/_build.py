@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles each source of ``csrc/`` (``gj.cu``, ``lu_block.cu``,
-``turbo.cu``) for Hopper (``sm_90a``), one process per source, all
-started together, and links the objects into one shared library with a
-plain C interface, which ``ctypes`` loads — no PyTorch headers, so the
-build takes seconds.
+``turbo.cu``, ``coo_spmm.cu``) for Hopper (``sm_90a``), one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, which ``ctypes`` loads — no PyTorch
+headers, so the build takes seconds.
 The library is written, at first use, to ``build/phy_engine_tpu_torch/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash
 of the sources and flags so an edited source is rebuilt and an unchanged
@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gj.cu", "lu_block.cu", "turbo.cu")
+SOURCES = ("gj.cu", "lu_block.cu", "turbo.cu", "coo_spmm.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phy_engine_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -122,6 +122,10 @@ def load_library() -> ctypes.CDLL:
     lib.pe_turbo_shared_bytes.restype = ctypes.c_longlong
     lib.pe_turbo_run.argtypes = [p] * 12 + [i] * 12 + [p]
     lib.pe_turbo_run.restype = i
+    ll = ctypes.c_longlong
+    for fn in (lib.pe_coo_spmm64, lib.pe_coo_spmm32):
+        fn.argtypes = [p] * 4 + [ll, p, ll, p] + [i] * 4 + [p]
+        fn.restype = i
     lib.pe_cuda_error_string.argtypes = [i]
     lib.pe_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

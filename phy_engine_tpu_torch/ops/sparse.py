@@ -3,12 +3,17 @@
 
 The matrix stays in COO form — the stamp pattern is static — and the
 solver is Jacobi-preconditioned BiCGStab, whose only operations are
-gather / multiply / segment-sum matvecs and dot products: torch ops, no
-factorization and no hand kernel (the JAX package has no Pallas kernel
-here either).
+sparse products and vector passes: torch ops, no factorization.  On a
+CUDA tensor the COO product (float64 or float32) is one hand-written
+kernel,
+``csrc/coo_spmm.cu`` (``coo_spmm``, over the row-ordered layout that
+:class:`COOLayout` builds); on a CPU tensor it is the plain torch twin,
+a gather, a multiply and :class:`RowPlan`'s segment sum.  The JAX package
+has no Pallas kernel here: XLA fuses the product there.
 
 * ``coo_matvec`` / ``coo_diagonal`` — y = A x and diag(A) of a COO system
-  whose rows / cols may hold the ground dummy n;
+  whose rows / cols may hold the ground dummy n; ``COOLayout.bind`` — the
+  product with its values bound once (a solve's operator);
 * ``ELL`` — the padded-row layout; ``BandedCOO`` — frequent diagonal
   offsets as dense bands (a shift and a multiply each) plus a COO
   remainder;
@@ -26,8 +31,9 @@ less often gives the same result as checking every iteration.
 Scatter-adds are deterministic: every segment reduction goes through a
 host-built :class:`RowPlan` (entries sorted by row, rows bucketed by
 degree, a fixed summation order, no atomics), whose memory stays O(nnz)
-however wide one row is, so a run on the card reproduces itself bit for
-bit.
+however wide one row is, or, for the product on the card, through the
+kernel's fixed order over the same sorted entries, so a run on the card
+reproduces itself bit for bit.
 
 The shadow residual of both solvers is the JAX package's pseudo-random
 vector ``frac(sin((i + 1) 12.9898) 43758.5453) + 0.5``, built once a size
@@ -49,6 +55,7 @@ from ..trace import count, host_read, span, spanned, sync_site
 
 CHECK_EVERY = 8      # iterations between host reads of the stop condition
 _ORDERED_MAX = 8     # rows up to this wide sum strictly left to right
+ROW_THREAD_MAX = 32  # coo_spmm: wider rows take a block each, not a thread
 
 
 def _host(a) -> np.ndarray:
@@ -89,7 +96,10 @@ class RowPlan:
     10,000 entries costs 16,384 entries, not n_out x 10,000.  A bucket up
     to ``_ORDERED_MAX`` wide sums left to right (the JAX package's
     sequential CPU scatter order); a wider one sums in torch's fixed
-    reduction order.  No atomics: a run reproduces itself bit for bit."""
+    reduction order.  No atomics: a run reproduces itself bit for bit.
+    ``order`` keeps the sorted positions of the kept entries and
+    ``counts`` the entries of each slot (:class:`COOLayout` lays its rows
+    out from them)."""
 
     def __init__(self, keys, n_out: int):
         keys = np.asarray(keys, np.int64).reshape(-1)
@@ -99,6 +109,9 @@ class RowPlan:
         pos = pos[np.argsort(keys[pos], kind="stable")]
         slots, start, counts = np.unique(keys[pos], return_index=True,
                                          return_counts=True)
+        self.order = pos                        # the kept entries by key
+        self.counts = np.zeros(self.n_out, np.int64)
+        self.counts[slots] = counts             # entries per slot
         width = np.ones_like(counts)
         while True:
             short = width < counts
@@ -153,7 +166,13 @@ class RowPlan:
 class COOLayout:
     """Host-built plans of a static COO pattern over n unknowns (rows and
     cols may hold the ground dummy n): the row sums of y = A x, the
-    diagonal and the row maxima, each a :class:`RowPlan`."""
+    diagonal and the row maxima, each a :class:`RowPlan`, and the
+    pattern in rows for the card's product (``coo_spmm``): ``rowptr``
+    (n + 1) int32, ``row_cols`` int32 (the ground dummy n kept; it reads
+    as 0.0), ``perm`` int64 (each row-ordered entry's position in the COO
+    list) and ``wide`` int32 (the rows over ``ROW_THREAD_MAX`` entries).
+    The order is the row plan's stable sort, so a row keeps its entries'
+    COO order; entries of the ground row are dropped."""
 
     def __init__(self, rows, cols, n: int):
         rows = _host(rows).astype(np.int64).reshape(-1)
@@ -163,16 +182,44 @@ class COOLayout:
         self._cols_np = cols
         self.rows = RowPlan(rows, n)
         self.diag = RowPlan(np.where(rows == cols, rows, -1), n)
+        self.perm = self.rows.order
+        if self.perm.size >= 2 ** 31:
+            raise ValueError(f"{self.perm.size} entries: the row layout "
+                             "indexes them in int32")
+        counts = self.rows.counts
+        self.rowptr = np.concatenate([[0], np.cumsum(counts)]).astype(
+            np.int32)
+        self.row_cols = cols[self.perm].astype(np.int32)
+        self.wide = np.nonzero(counts > ROW_THREAD_MAX)[0].astype(np.int32)
         self._cols: Dict[torch.device, torch.Tensor] = {}
+        self._csr: Dict[torch.device, Any] = {}
 
     def cols(self, device):
         if device not in self._cols:
             self._cols[device] = torch.as_tensor(self._cols_np, device=device)
         return self._cols[device]
 
-    @spanned("pe.coo_matvec")
+    def csr(self, device):
+        """(rowptr, row_cols, wide, perm) on ``device``, cached."""
+        if device not in self._csr:
+            self._csr[device] = tuple(
+                torch.as_tensor(a, device=device)
+                for a in (self.rowptr, self.row_cols, self.wide, self.perm))
+        return self._csr[device]
+
+    def bind(self, vals):
+        """The product x -> A x with ``vals`` (nnz,) or (B, nnz) bound:
+        a solve's operator, whose values stay fixed across its calls."""
+        return COOProduct(self, vals)
+
     def matvec(self, vals, x):
-        """y = A x; x (..., n), vals (nnz,) or (..., nnz)."""
+        """y = A x; x (..., n), vals (nnz,) or (..., nnz): one call of
+        ``bind(vals)``."""
+        return self.bind(vals)(x)
+
+    def matvec_plain(self, vals, x):
+        """The product's plain torch twin, on any device: a gather of x at
+        every entry's column, the multiply and the row plan's sum."""
         return self.rows.sum(vals * _ext(x)[..., self.cols(x.device)])
 
     def diagonal(self, vals):
@@ -180,6 +227,85 @@ class COOLayout:
 
     def row_max(self, vals):
         return self.rows.amax(vals.abs())
+
+
+class COOProduct:
+    """y = A x for the values of one solve (``COOLayout.bind``).
+
+    Both operands on the CPU: the plain twin,
+    :meth:`COOLayout.matvec_plain`.  Otherwise the hand-written kernel
+    ``coo_spmm`` (or it raises): the values are gathered into row order
+    once, here, and every call is one launch (two where the layout has
+    rows over ``ROW_THREAD_MAX``)."""
+
+    def __init__(self, layout: COOLayout, vals):
+        self.layout, self.vals = layout, vals
+        if vals.device.type != "cpu":
+            self.row_vals       # the one gather a solve, outside the calls
+
+    @functools.cached_property
+    def row_vals(self):
+        """The values in the layout's row order, (nnz_rows,) or (B,
+        nnz_rows), contiguous."""
+        perm = self.layout.csr(self.vals.device)[3]
+        return self.vals[..., perm].contiguous()
+
+    @spanned("pe.coo_matvec")
+    def __call__(self, x):
+        if self.vals.device.type == "cpu" and x.device.type == "cpu":
+            return self.layout.matvec_plain(self.vals, x)
+        return coo_spmm(self.layout, self.row_vals, x)
+
+
+def coo_spmm(layout: COOLayout, row_vals, x):
+    """y = A x on the card by ``csrc/coo_spmm.cu``: row_vals (nnz_rows,)
+    or (B, nnz_rows) in ``layout``'s row order, x (n,) or (B, n), both
+    float64 or both float32, contiguous on one CUDA device; y has the
+    lanes of either ((n,) when both are 1-D).  Rows up to eight entries
+    wide agree with the plain twin bit for bit, wider ones to rounding; a
+    repeat run is bit-identical.  ``coo_spmm.launches`` counts kernel
+    launches."""
+    from .gj import _launch
+    n = layout.n
+    args = (("row_vals", row_vals), ("x", x))
+    for name, t in args:
+        if not isinstance(t, torch.Tensor) or t.dtype not in _SPMM:
+            raise TypeError(f"{name} must be a float64 or float32 tensor")
+    if row_vals.dtype != x.dtype:
+        raise TypeError(f"row_vals is {row_vals.dtype} and x {x.dtype}")
+    for name, t in args:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} lies on {t.device}: the product "
+                             "runs on a CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dim() not in (1, 2):
+            raise ValueError(f"{name} must be 1-D or 2-D, got "
+                             f"{tuple(t.shape)}")
+    if row_vals.device != x.device:
+        raise ValueError("row_vals and x lie on different devices")
+    if row_vals.shape[-1] != layout.perm.size or x.shape[-1] != n:
+        raise ValueError(f"row_vals (..., {layout.perm.size}) and x (..., "
+                         f"{n}) expected, got {tuple(row_vals.shape)} and "
+                         f"{tuple(x.shape)}")
+    lanes = {t.shape[0] for t in (row_vals, x) if t.dim() == 2}
+    if len(lanes) > 1:
+        raise ValueError(f"row_vals and x differ in lanes: {lanes}")
+    B = lanes.pop() if lanes else 1
+    stride = lambda t: t.shape[-1] if t.dim() == 2 else 0
+    y = torch.empty((B, n) if row_vals.dim() == 2 or x.dim() == 2 else (n,),
+                    dtype=x.dtype, device=x.device)
+    rowptr, cols, wide, _perm = layout.csr(x.device)
+    n_wide = wide.numel()
+    _launch(_SPMM[x.dtype], rowptr, cols, wide if n_wide else None,
+            row_vals, stride(row_vals), x, stride(x), y, B, n,
+            ROW_THREAD_MAX, n_wide)
+    coo_spmm.launches += 1 + (n_wide > 0)
+    return y
+
+
+coo_spmm.launches = 0
+_SPMM = {torch.float64: "pe_coo_spmm64", torch.float32: "pe_coo_spmm32"}
 
 
 def coo_matvec(rows, cols, vals, x, n: int):
@@ -427,15 +553,17 @@ def bicgstab(rows, cols, vals, b, n: int, x0=None, tol: float = 1e-10,
     there too)."""
     lay = layout if layout is not None else COOLayout(rows, cols, n)
     b2, one = _lanes(b)
+    b2 = b2.contiguous()
     dtype = b2.dtype
     vals = vals.to(dtype)
-    mv = functools.partial(lay.matvec, vals)
+    mv = lay.bind(vals)
     d = lay.diagonal(vals)
     # row-max-scaled Jacobi: the diagonal where it carries the row's
     # weight, else (structural-zero source rows) the row's max |entry|
     row_max = lay.row_max(vals).clamp(min=1e-300)
     minv = 1.0 / torch.where(d.abs() > 1e-3 * row_max, d, row_max)
-    x = torch.zeros_like(b2) if x0 is None else _lanes(x0.to(dtype))[0]
+    x = (torch.zeros_like(b2) if x0 is None
+         else _lanes(x0.to(dtype))[0].contiguous())
     b_norm = _norm(b2).clamp(min=1e-300)
     r = b2 - mv(x)
 

@@ -9,8 +9,9 @@
   when someone profiles; there is no switch.
 * ``count(name, n)`` adds to a host-side integer counter (always on; it
   never reads a tensor).  ``counters()`` is a snapshot of every counter,
-  together with the launch counters of the hand-written kernels, which
-  stay attributes of their wrappers.
+  together with the launch counters of the five hand-written kernels'
+  wrappers (``gj_solve32``, ``gj_inverse32``, ``lu_block_inverse32``,
+  ``run_turbo``, ``coo_spmm``), which stay attributes of their wrappers.
 * ``host_read(t, site)`` is an explicit read of the device (what
   ``t.tolist()``, ``bool(t)`` or ``t.item()`` return) inside the span
   ``pe.sync.<site>``, counted in ``host_syncs``; ``sync_site(site)`` is
@@ -71,9 +72,11 @@ def counters() -> dict:
     from .digital.turbo import run_turbo
     from .ops.gj import gj_inverse32, gj_solve32
     from .ops.lu_block import lu_block_inverse32
+    from .ops.sparse import coo_spmm
     with _LOCK:
         out = dict(_COUNTS)
-    for fn in (gj_solve32, gj_inverse32, lu_block_inverse32, run_turbo):
+    for fn in (gj_solve32, gj_inverse32, lu_block_inverse32, run_turbo,
+               coo_spmm):
         out[f"{fn.__name__}.launches"] = fn.launches
     return out
 

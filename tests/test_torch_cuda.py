@@ -24,6 +24,8 @@ max|x| of the CPU result (the same f64 algorithm; the card's sin/exp may
 differ in the last ulps), repeat runs bit-identical.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -39,10 +41,9 @@ import phy_engine_tpu_torch as tpe
 from phy_engine_tpu_torch.engine import circuit as tcircuit
 
 from torch_circuits import (build, build_port, diode_load, divider,
-                            mesh_routes_run)
+                            mesh_routes_run, random_link_mesh_ir)
 import bsim3_cases
 import torch_digital_cases as dc
-
 
 @pytest.fixture
 def cuda():
@@ -921,3 +922,191 @@ def test_bicgstab_ell_bit_identical_run_to_run(cuda):
     x, ok, _it = sparse.bicgstab(rows, cols, v, zz, len(z), max_iter=20000)
     x2, _ok, _it = sparse.bicgstab(rows, cols, v, zz, len(z), max_iter=20000)
     assert torch.equal(x, x2)
+
+
+@functools.lru_cache(maxsize=2)
+def _mesh_layout(nodes: int, links: int):
+    """The random-link mesh (``torch_circuits.random_link_mesh_ir``)
+    lowered by the port: its sparse route's COO layout (ground-row
+    entries and ground-dummy columns included)."""
+    return analog.coo_layout(random_link_mesh_ir(nodes, links))
+
+
+def _hub_layout():
+    """A 3,000-node mesh with node 0 tied to 10,000 resistors: a row of
+    20,000 + entries, over ``sparse.ROW_THREAD_MAX``, among narrow ones."""
+    from phy_engine_tpu_torch.ops import sparse
+    rows, cols, _v, z = workloads.sparse_mesh_coo(3000, 400, seed=5)
+    other = np.random.default_rng(6).integers(1, 3000, 10_000)
+    zero = np.zeros_like(other)
+    rows = np.concatenate([rows, zero, other, zero, other])
+    cols = np.concatenate([cols, zero, other, other, zero])
+    return sparse.COOLayout(rows, cols, len(z))
+
+
+def _spmm_case(case):
+    """(layout, values, x) as numpy: per-lane values at B = 64 on the
+    mesh (also in float32), one lane of 1-D values and x, (nnz,) values
+    shared by 64 lanes, and the hub row at B = 4."""
+    lay = {"mesh20k": lambda: _mesh_layout(20_000, 2_000),
+           "mesh100k": lambda: _mesh_layout(100_000, 10_000),
+           "hub": _hub_layout}.get(case, lambda: _mesh_layout(20_000, 2_000))()
+    rng = np.random.default_rng(len(case))
+    B = {"one_lane": 1, "hub": 4}.get(case, 64)
+    vals = rng.standard_normal((B, lay.nnz)) * 10.0 ** rng.uniform(
+        -3, 3, (B, lay.nnz))
+    x = rng.standard_normal((B, lay.n))
+    if case == "shared":
+        vals = vals[0]
+    if case == "one_lane":
+        vals, x = vals[0], x[0]
+    if case == "float32":
+        vals, x = vals.astype(np.float32), x.astype(np.float32)
+    return lay, vals, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mesh20k", "mesh100k", "one_lane",
+                                  "shared", "hub", "float32"])
+def test_coo_spmm_matches_plain(cuda, case):
+    """The kernel against the plain twin on the same CUDA tensors: bit
+    for bit on rows up to eight entries wide; on wider ones to 1e-12 of
+    max|y| in float64 and to 32 float32 ulps of the row's |A| |x| in
+    float32; a repeat run bit-identical; one launch a product (two with a
+    row over ``ROW_THREAD_MAX``)."""
+    from phy_engine_tpu_torch.ops import sparse
+    lay, vals, x = _spmm_case(case)
+    v, xd = torch.as_tensor(vals, device=cuda), torch.as_tensor(x, device=cuda)
+    prod = lay.bind(v)
+    before = sparse.coo_spmm.launches
+    y, y2 = prod(xd), prod(xd)
+    torch.cuda.synchronize()
+    per = 1 + (lay.wide.size > 0)
+    assert per == (2 if case == "hub" else 1)
+    assert sparse.coo_spmm.launches - before == 2 * per
+    plain = lay.matvec_plain(v, xd)
+    assert y.shape == plain.shape and y.dtype == plain.dtype == v.dtype
+    assert torch.equal(y, y2)
+    narrow = torch.as_tensor(np.diff(lay.rowptr) <= 8, device=cuda)
+    assert torch.equal(y[..., narrow], plain[..., narrow])
+    if case == "float32":
+        tol = 32 * torch.finfo(torch.float32).eps * lay.matvec_plain(
+            v.abs(), xd.abs())
+        assert bool(((y - plain).abs() <= tol).all())
+    else:
+        assert float((y - plain).abs().max()) <= 1e-12 * float(
+            plain.abs().max())
+    if case == "mesh100k":
+        # the mesh100k.dc cell's pattern: 540,001 entries in range, rows
+        # of 5, 7 and 9-13 entries
+        widths = dict(zip(*np.unique(np.diff(lay.rowptr),
+                                     return_counts=True)))
+        assert (lay.n, lay.perm.size) == (100_001, 540_001)
+        assert widths == {2: 1, 4: 1, 5: 81_874, 7: 16_376, 9: 1_627,
+                          11: 118, 13: 4}
+
+
+@pytest.mark.cuda
+def test_coo_spmm_refuses_what_it_does_not_take(cuda):
+    from phy_engine_tpu_torch.ops import sparse
+    lay, vals, x = _spmm_case("hub")
+    v, xd = torch.as_tensor(vals, device=cuda), torch.as_tensor(x, device=cuda)
+    prod = lay.bind(v)
+    before = sparse.coo_spmm.launches
+    with pytest.raises(TypeError):
+        prod(xd.half())
+    with pytest.raises(TypeError):
+        prod(xd.float())                        # float64 values, float32 x
+    with pytest.raises(TypeError):
+        lay.bind(v.half())(xd.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        prod(xd.t().contiguous().t())
+    with pytest.raises(ValueError):
+        prod(xd.cpu())
+    with pytest.raises(ValueError):
+        lay.bind(v.cpu())(xd)
+    assert sparse.coo_spmm.launches == before
+
+
+def _leaky_mesh(n_nodes=2000, links=300, seed=4):
+    """A small random-link mesh with every node leaking to ground, three
+    lanes of scaled values and right sides: (rows, cols, vals_b, z_b, n)."""
+    rows, cols, vals, z = workloads.sparse_mesh_coo(n_nodes, links, seed)
+    n = len(z)
+    leak = np.arange(n - 1)                     # every node to ground
+    rows = np.concatenate([rows, leak])
+    cols = np.concatenate([cols, leak])
+    vals = np.concatenate([vals, np.full(n - 1, 1e-3)])
+    vals_b = np.stack([vals * s for s in (1.0, 3.0, 0.5)])
+    z_b = np.stack([z, 2.0 * z, -z])
+    return rows, cols, vals_b, z_b, n
+
+
+@pytest.mark.cuda
+def test_bicgstab_card_matches_cpu_one_launch_a_product(cuda):
+    """The f64 BiCGStab on the card against the CPU within 1e-7 of max|x|
+    (``test_bicgstab_vs_jax_and_scipy``'s tolerance), three lanes, every
+    product one launch: the first residual, two an iteration, the last."""
+    from phy_engine_tpu_torch import trace
+    from phy_engine_tpu_torch.ops import sparse
+    rows, cols, vals_b, z_b, n = _leaky_mesh()
+    out = {}
+    for dev in ("cpu", cuda):
+        before = trace.counters()
+        out[str(dev)] = sparse.bicgstab(
+            rows, cols, torch.as_tensor(vals_b, device=dev),
+            torch.as_tensor(z_b, device=dev), n)
+        after = trace.counters()
+    x_cpu, ok_cpu, _ = out["cpu"]
+    x, ok, _it = out[str(cuda)]
+    assert bool(ok.all()) and bool(ok_cpu.all())
+    scale = float(x_cpu.abs().max())
+    assert float((x.cpu() - x_cpu).abs().max()) <= 1e-7 * scale
+    launched = (after["bicgstab.iterations_launched"]
+                - before.get("bicgstab.iterations_launched", 0))
+    assert after["coo_spmm.launches"] - before["coo_spmm.launches"] == \
+        2 * launched + 2
+
+
+@pytest.mark.cuda
+def test_bicgstab_card_takes_strided_b_and_float32(cuda):
+    """A right side that is a transposed view runs on the card and gives
+    the contiguous run's x bit for bit; a float32 solve runs through the
+    float32 kernel and converges (tol 1e-5) to an x whose float64
+    residual is under 1e-4 of |b|."""
+    from phy_engine_tpu_torch.ops import sparse
+    rows, cols, vals_b, z_b, n = _leaky_mesh()
+    v = torch.as_tensor(vals_b, device=cuda)
+    zc = torch.as_tensor(z_b, device=cuda)
+    zt = torch.as_tensor(np.ascontiguousarray(z_b.T), device=cuda).t()
+    assert not zt.is_contiguous() and torch.equal(zt, zc)
+    x, ok, _ = sparse.bicgstab(rows, cols, v, zc, n)
+    x_t, ok_t, _ = sparse.bicgstab(rows, cols, v, zt, n)
+    assert bool(ok.all()) and bool(ok_t.all()) and torch.equal(x, x_t)
+    before = sparse.coo_spmm.launches
+    x32, ok32, _ = sparse.bicgstab(rows, cols, v.float(), zc.float(), n,
+                                   tol=1e-5)
+    assert x32.dtype == torch.float32 and bool(ok32.all())
+    assert sparse.coo_spmm.launches > before
+    r = (sparse.coo_matvec(rows, cols, v.cpu(), x32.double().cpu(), n)
+         - zc.cpu())
+    assert float((torch.linalg.vector_norm(r, dim=-1)
+                  / torch.linalg.vector_norm(zc.cpu(), dim=-1)).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_circuit_float32_sparse_route_runs_on_the_card(cuda):
+    """``Circuit(dtype=float32)`` on the sparse route runs its products
+    through the float32 kernel and ends as the same Circuit does on the
+    CPU (an OP that does not reach the float64 residual check)."""
+    from phy_engine_tpu_torch.ops import sparse
+    ok = {}
+    for dev in ("cpu", cuda):
+        nl, _nodes = workloads.random_mesh_netlist(300, 1200, seed=3)
+        c = tpe.Circuit(nl, dtype=torch.float32, device=dev,
+                        solver="sparse")
+        before = sparse.coo_spmm.launches
+        ok[str(dev)] = c.analyze()
+        launched = sparse.coo_spmm.launches - before
+        assert launched == 0 if dev == "cpu" else launched > 0
+    assert ok["cpu"] == ok[str(cuda)]

@@ -19,6 +19,7 @@ import torch
 
 from phy_engine_tpu.ops import sparse as jsp
 
+from phy_engine_tpu_torch import trace
 from phy_engine_tpu_torch.ops import sparse as tsp
 from test_sparse import _random_mesh_coo
 
@@ -244,3 +245,118 @@ def test_shadow_built_on_the_host_in_f64():
     ref = (ref - np.floor(ref)) + 0.5
     np.testing.assert_array_equal(h.numpy(), ref.astype(np.float32))
     assert h.dtype == torch.float32
+
+
+def _grounded_pattern(n=60, wide_row=5, seed=11):
+    """A pattern with ground-row entries (row n), ground-dummy columns
+    (col n), repeated (row, col) pairs and one row over
+    ``ROW_THREAD_MAX`` entries, in no particular order."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n + 1, 700)
+    cols = rng.integers(0, n + 1, 700)
+    rows[:tsp.ROW_THREAD_MAX + 9] = wide_row
+    perm = rng.permutation(rows.size)
+    return rows[perm], cols[perm], n
+
+
+def test_row_layout_holds_each_entry_once_in_row_plan_order():
+    rows, cols, n = _grounded_pattern()
+    lay = tsp.COOLayout(rows, cols, n)
+    keep = np.nonzero(rows < n)[0]
+    assert (rows == n).any() and (cols[keep] == n).any()
+    # every in-range entry exactly once, ground-row entries dropped
+    np.testing.assert_array_equal(np.sort(lay.perm), keep)
+    # a stable sort by row: rows ascending, COO order inside a row
+    r, k = rows[lay.perm], lay.perm
+    assert ((r[1:] > r[:-1]) | ((r[1:] == r[:-1]) & (k[1:] > k[:-1]))).all()
+    counts = np.bincount(rows[keep], minlength=n)
+    np.testing.assert_array_equal(np.diff(lay.rowptr), counts)
+    assert lay.rowptr.dtype == lay.row_cols.dtype == np.int32
+    # the dummy column stays, as n
+    np.testing.assert_array_equal(lay.row_cols, cols[lay.perm])
+    np.testing.assert_array_equal(lay.wide,
+                                  np.nonzero(counts > tsp.ROW_THREAD_MAX)[0])
+    assert lay.wide.tolist() == [5]
+
+
+@pytest.mark.parametrize("lanes", ["per_lane", "shared", "one", "float32"])
+def test_row_ordered_sum_over_bind_reproduces_row_plan(lanes):
+    """The card kernel's arithmetic, emulated on the CPU: over the bound
+    row-ordered values, each row's products rounded and added left to
+    right in the values' dtype, reproduce the plain twin bit for bit on
+    rows up to eight entries wide and to 1e-12 of max|y| (float64) or 32
+    ulps of the row's |A| |x| (float32) elsewhere."""
+    rows, cols, n = _grounded_pattern()
+    lay = tsp.COOLayout(rows, cols, n)
+    rng = np.random.default_rng(12)
+    B = 1 if lanes == "one" else 3
+    vals = rng.standard_normal((B, rows.size)) * 10.0 ** rng.uniform(
+        -6, 6, (B, rows.size))
+    x = rng.standard_normal((B, n))
+    if lanes == "shared":
+        vals = vals[0]
+    if lanes == "one":
+        vals, x = vals[0], x[0]
+    if lanes == "float32":
+        vals, x = vals.astype(np.float32), x.astype(np.float32)
+    prod = lay.bind(_t(vals))
+    want = prod(_t(x)).numpy()
+    np.testing.assert_array_equal(want, lay.matvec_plain(_t(vals),
+                                                         _t(x)).numpy())
+    rv = prod.row_vals.numpy()
+    assert rv.flags.c_contiguous and rv.shape[-1] == lay.perm.size
+    xe = np.concatenate([np.atleast_2d(x), np.zeros((np.atleast_2d(x)
+                                                     .shape[0], 1), x.dtype)], 1)
+    rv2 = np.broadcast_to(np.atleast_2d(rv), (xe.shape[0], rv.shape[-1]))
+    got = np.zeros((xe.shape[0], n), x.dtype)
+    for r in range(n):
+        for k in range(lay.rowptr[r], lay.rowptr[r + 1]):
+            p = rv2[:, k] * xe[:, lay.row_cols[k]]
+            got[:, r] = p if k == lay.rowptr[r] else got[:, r] + p
+    got = got.reshape(want.shape)
+    narrow = np.diff(lay.rowptr) <= 8
+    np.testing.assert_array_equal(got[..., narrow], want[..., narrow])
+    if lanes == "float32":
+        tol = 32 * np.finfo(np.float32).eps * lay.matvec_plain(
+            _t(np.abs(vals)), _t(np.abs(x))).numpy()
+        assert (np.abs(got - want) <= tol).all()
+    else:
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_coo_spmm_refuses_what_the_kernel_does_not_take():
+    rows, cols, n = _grounded_pattern()
+    lay = tsp.COOLayout(rows, cols, n)
+    rv = torch.zeros(lay.perm.size, dtype=torch.float64)
+    x = torch.zeros(n, dtype=torch.float64)
+    before = tsp.coo_spmm.launches
+    with pytest.raises(TypeError):
+        tsp.coo_spmm(lay, rv.half(), x.half())
+    with pytest.raises(TypeError):
+        tsp.coo_spmm(lay, rv, x.float())
+    with pytest.raises(TypeError):
+        tsp.coo_spmm(lay, rv.float(), x)
+    for dt in (torch.float64, torch.float32):
+        with pytest.raises(ValueError, match="CUDA"):
+            tsp.coo_spmm(lay, rv.to(dt), x.to(dt))
+    assert tsp.coo_spmm.launches == before
+    # a CPU product takes the plain twin and launches nothing
+    lay.matvec(torch.ones(rows.size, dtype=torch.float64), x)
+    assert tsp.coo_spmm.launches == before
+    assert "coo_spmm.launches" in trace.counters()
+
+
+def test_row_layout_of_the_mesh_cell_pattern():
+    """The 100,001-unknown random-link mesh the port lowers
+    (``torch_circuits.random_link_mesh_ir``, 10,000 links): 540,004
+    entries, 540,001 in range, rows of 5, 7 and 9-13 entries and none over
+    ``ROW_THREAD_MAX``, so the card's product is one launch."""
+    from phy_engine_tpu_torch.engine import analog
+    from torch_circuits import random_link_mesh_ir
+    lay = analog.coo_layout(random_link_mesh_ir(100_000, 10_000))
+    widths = dict(zip(*np.unique(np.diff(lay.rowptr), return_counts=True)))
+    assert (lay.n, lay.nnz, lay.perm.size) == (100_001, 540_004, 540_001)
+    assert widths == {2: 1, 4: 1, 5: 81_874, 7: 16_376, 9: 1_627, 11: 118,
+                      13: 4}
+    assert lay.wide.size == 0
+    assert int(lay.rowptr[-1]) == lay.perm.size == lay.row_cols.size

@@ -213,12 +213,13 @@ def test_counters_carry_the_kernels_launches(monkeypatch):
     from phy_engine_tpu_torch.digital import turbo
     from phy_engine_tpu_torch.ops import gj, lu_block
     for k, fn in enumerate((gj.gj_solve32, gj.gj_inverse32,
-                            lu_block.lu_block_inverse32, turbo.run_turbo)):
+                            lu_block.lu_block_inverse32, turbo.run_turbo,
+                            sparse.coo_spmm)):
         monkeypatch.setattr(fn, "launches", 11 + k)
     c = trace.counters()
     assert (c["gj_solve32.launches"], c["gj_inverse32.launches"],
-            c["lu_block_inverse32.launches"], c["run_turbo.launches"]) == (
-                11, 12, 13, 14)
+            c["lu_block_inverse32.launches"], c["run_turbo.launches"],
+            c["coo_spmm.launches"]) == (11, 12, 13, 14, 15)
 
 
 @pytest.mark.parametrize("t", [

@@ -132,6 +132,38 @@ def mesh_mna(c):
     return sp.csr_matrix((vals, (rows, cols)), shape=(n, n)), rhs
 
 
+def random_link_mesh_ir(nodes: int, links: int, seed: int = 1):
+    """The upstream's 100000_random_links topology lowered by the port: a
+    1 kOhm chain ground - n0 - ... - n_{nodes-1}, ``links`` 1 kOhm links
+    between uniform node pairs (numpy's generator at ``seed``; a pair
+    drawn twice as one node takes the next node instead) and a 1 V DC
+    source from n_{nodes-1} to ground.  Returns the lowered circuit, over
+    nodes + 1 unknowns."""
+    import numpy as np
+
+    from phy_engine_tpu_torch.engine.lower import lower_analog
+    from phy_engine_tpu_torch.models.linear import RESISTANCE, VDC
+    from phy_engine_tpu_torch.netlist import operations as netops
+    from phy_engine_tpu_torch.netlist.netlist import Netlist
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, nodes, links)
+    b = rng.integers(0, nodes, links)
+    b = np.where(a == b, (b + 1) % nodes, b)
+    nl = Netlist()
+    net = [netops.create_node(nl) for _ in range(nodes)]
+    pairs = [(nl.ground_node, net[0])]
+    pairs += [(net[i], net[i + 1]) for i in range(nodes - 1)]
+    pairs += [(net[i], net[j]) for i, j in zip(a.tolist(), b.tolist())]
+    for p, q in pairs:
+        r = netops.add_model(nl, RESISTANCE, {"r": 1000.0})
+        netops.add_to_node(nl, r, 0, p)
+        netops.add_to_node(nl, r, 1, q)
+    v = netops.add_model(nl, VDC, {"V": 1.0})
+    netops.add_to_node(nl, v, 0, net[-1])
+    netops.add_to_node(nl, v, 1, nl.ground_node)
+    return lower_analog(nl)
+
+
 def mesh_routes_run(device) -> int:
     """The routes that take ``mesh=`` run on a one-rank mesh of
     ``device``'s type (NCCL on a card, gloo on the CPU) and agree with the

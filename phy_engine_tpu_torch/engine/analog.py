@@ -426,7 +426,8 @@ def newton_solve(ir: AnalogIR, params, x0, states0, ctx: StampCtx,
 
     ``method``: 'dense' — dense assembly and a dense solve
     (``dense_solve``: the f64 Gauss-Jordan for float64); 'sparse' — COO
-    assembly and the f64 Jacobi BiCGStab (``ops.sparse.bicgstab``, warm
+    assembly and the f64 BiCGStab (``ops.sparse.bicgstab``: Jacobi, or
+    the chain preconditioner once Jacobi has failed on the pattern; warm
     started from the lane's x), for large systems: no dense matrix is
     built (the size policy lives in the ``Circuit`` driver).  ``stamp``:
     see `assemble_sparse`."""

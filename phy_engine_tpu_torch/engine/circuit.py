@@ -22,8 +22,9 @@ lives on ``Circuit.device`` ("cuda" unless the caller passes "cpu").
 
 OP, DC, TROP, TR and adaptive TR take the dense route (dense assembly,
 the f64 Gauss-Jordan) below ``sparse_threshold`` unknowns and the sparse
-route (COO assembly, the f64 Jacobi BiCGStab of ``ops/sparse.py``, no
-dense matrix) at or above it, or as ``solver`` forces; AC, noise, sens and
+route (COO assembly, the f64 BiCGStab of ``ops/sparse.py``, Jacobi or,
+once Jacobi fails on the pattern, the chain preconditioner; no dense
+matrix) at or above it, or as ``solver`` forces; AC, noise, sens and
 the sweeps stay dense, as in the JAX package.
 
 With ``mesh=`` (a ``parallel.mesh.make_mesh`` DeviceMesh; every rank of

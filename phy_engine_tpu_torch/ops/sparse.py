@@ -2,8 +2,8 @@
 ``phy_engine_tpu/ops/sparse.py``).
 
 The matrix stays in COO form — the stamp pattern is static — and the
-solver is Jacobi-preconditioned BiCGStab, whose only operations are
-sparse products and vector passes: torch ops, no factorization.  On a
+solver is preconditioned BiCGStab, whose only operations are sparse
+products and vector passes: torch ops, no factorization of A.  On a
 CUDA tensor the COO product (float64 or float32) is one hand-written
 kernel,
 ``csrc/coo_spmm.cu`` (``coo_spmm``, over the row-ordered layout that
@@ -17,8 +17,10 @@ has no Pallas kernel here: XLA fuses the product there.
 * ``ELL`` — the padded-row layout; ``BandedCOO`` — frequent diagonal
   offsets as dense bands (a shift and a multiply each) plus a COO
   remainder;
-* ``bicgstab`` — f64 Jacobi BiCGStab on COO (the ``Circuit`` sparse
-  route); ``bicgstab_ell`` — f32 Krylov on an ELL / BandedCOO layout with
+* ``bicgstab`` — f64 BiCGStab on COO (the ``Circuit`` sparse route),
+  Jacobi-preconditioned until a pattern needs the chain preconditioner
+  (``ChainPreconditioner``: the tridiagonal band by PCR and a Schur
+  border); ``bicgstab_ell`` — f32 Krylov on an ELL / BandedCOO layout with
   f64 refinement passes (``bench_sparse.py``'s solver).
 
 Vectors carry a lane dimension ``(B, n)`` (a 1-D vector is one lane);
@@ -52,6 +54,7 @@ import numpy as np
 import torch
 
 from ..trace import count, host_read, span, spanned, sync_site
+from .tridiag import PCRFactor
 
 CHECK_EVERY = 8      # iterations between host reads of the stop condition
 _ORDERED_MAX = 8     # rows up to this wide sum strictly left to right
@@ -191,8 +194,17 @@ class COOLayout:
             np.int32)
         self.row_cols = cols[self.perm].astype(np.int32)
         self.wide = np.nonzero(counts > ROW_THREAD_MAX)[0].astype(np.int32)
+        self._rows_np = rows
         self._cols: Dict[torch.device, torch.Tensor] = {}
         self._csr: Dict[torch.device, Any] = {}
+        # set by ``bicgstab`` once Jacobi has failed on this pattern: its
+        # later solves take the chain preconditioner from the start
+        self.chain_first = False
+
+    @functools.cached_property
+    def chain(self) -> "ChainPlan":
+        """The pattern's :class:`ChainPlan`, built on first use."""
+        return ChainPlan(self._rows_np, self._cols_np, self.n)
 
     def cols(self, device):
         if device not in self._cols:
@@ -485,11 +497,116 @@ def _safe(d, tiny):
     return torch.where(d == 0, torch.full_like(d, tiny), d)
 
 
-def _krylov(mv, minv, x, r0, max_iter, stop, tiny, done=None):
+class ChainPlan:
+    """Host plan of a COO pattern's chain preconditioner.
+
+    The border unknowns are the rows with no diagonal entry in the
+    pattern (an MNA's voltage-source branch rows); the other m unknowns,
+    in their own order, make the band.  Four :class:`RowPlan` sums gather
+    from the values, duplicates summed in entry order: the band's
+    tridiagonal T as (3, m) (sub, main, super diagonal), E (k, m) (band
+    rows, border columns; stored by border), F (k, m) (border rows, band
+    columns) and D (k, k).  Band entries off the tridiagonal and entries
+    in the ground dummy's row or column are left out."""
+
+    def __init__(self, rows, cols, n: int):
+        inr = (rows < n) & (cols < n)
+        has_diag = np.zeros(n, bool)
+        has_diag[rows[inr & (rows == cols)]] = True
+        band = np.nonzero(has_diag)[0]
+        border = np.nonzero(~has_diag)[0]
+        self.m, self.k = m, k = band.size, border.size
+        order = np.concatenate([band, border])
+        # None where the band is the first m unknowns, in order
+        self.perm = (None if np.array_equal(order, np.arange(n))
+                     else order)
+        self.inv_perm = None if self.perm is None else np.argsort(order)
+        at = np.full(n + 1, -1)                 # band position, or -1
+        at[band] = np.arange(m)
+        at_b = np.full(n + 1, -1)               # border position, or -1
+        at_b[border] = np.arange(k)
+        pr, pc = at[rows], at[cols]
+        br, bc = at_b[rows], at_b[cols]
+        on_band = (pr >= 0) & (pc >= 0) & (np.abs(pr - pc) <= 1)
+        self.band = RowPlan(np.where(on_band, (pc - pr + 1) * m + pr, -1),
+                            3 * m)
+        self.e = RowPlan(np.where((pr >= 0) & (bc >= 0), bc * m + pr, -1),
+                         k * m)
+        self.f = RowPlan(np.where((br >= 0) & (pc >= 0), br * m + pc, -1),
+                         k * m)
+        self.d = RowPlan(np.where((br >= 0) & (bc >= 0), br * k + bc, -1),
+                         k * k)
+        self._dev: Dict[torch.device, Any] = {}
+
+    def perms(self, device):
+        """(perm, inv_perm) on ``device``, cached; (None, None) where the
+        band comes first in order."""
+        if self.perm is None:
+            return None, None
+        if device not in self._dev:
+            self._dev[device] = (torch.as_tensor(self.perm, device=device),
+                                 torch.as_tensor(self.inv_perm,
+                                                 device=device))
+        return self._dev[device]
+
+
+class ChainPreconditioner:
+    """M^-1 for the chain preconditioner of a solve's values: M is the
+    matrix with the band's entries off its tridiagonal dropped,
+
+        M = [T  E^T]   over (band, border),
+            [F  D  ]
+
+    factored once (:class:`ChainPlan` gathers the pieces): T by
+    :class:`~.tridiag.PCRFactor`, T^-1 E^T by it (k solves at once) and
+    the Schur matrix S = D - F T^-1 E^T, (..., k, k), inverted.  An
+    application is t = T^-1 r_band, i = S^-1 (r_border - F t),
+    v = t - (T^-1 E^T) i: PCR's right-side rounds and a few small
+    products, with no host synchronisation.  On a chain-dominated
+    network (a long RC or resistor chain with sparse shortcuts) M^-1 A is
+    the identity plus a term of low rank for each shortcut, where Jacobi
+    needs iterations in proportion to the chain's length."""
+
+    def __init__(self, layout: COOLayout, vals):
+        plan = self.plan = layout.chain
+        m, k = plan.m, plan.k
+        with span("pe.chain_factor"):
+            count("chain.factors")
+            band = plan.band.sum(vals).unflatten(-1, (3, m))
+            self.pcr = PCRFactor(band[..., 0, :], band[..., 1, :],
+                                 band[..., 2, :])
+            if k:
+                e = plan.e.sum(vals).unflatten(-1, (k, m))
+                self.f = plan.f.sum(vals).unflatten(-1, (k, m))
+                # T^-1 E^T, (..., k, m): the k columns solved as one batch
+                self.t_e = self.pcr.solve(e.movedim(-2, 0)).movedim(0, -2)
+                s = (plan.d.sum(vals).unflatten(-1, (k, k))
+                     - self.f @ self.t_e.transpose(-1, -2))
+                self.s_inv = torch.linalg.inv_ex(s).inverse
+
+    def __call__(self, r):
+        plan = self.plan
+        with span("pe.chain_apply"):
+            count("chain.applies")
+            perm, inv_perm = plan.perms(r.device)
+            if perm is not None:
+                r = r[..., perm]
+            t = self.pcr.solve(r[..., :plan.m])
+            if not plan.k:
+                return t if perm is None else t[..., inv_perm]
+            i = (self.s_inv @ (r[..., plan.m:] - (
+                self.f @ t[..., None])[..., 0])[..., None])[..., 0]
+            v = torch.cat([t - (i[..., None, :] @ self.t_e)[..., 0, :], i],
+                          dim=-1)
+            return v if perm is None else v[..., inv_perm]
+
+
+def _krylov(mv, precond, x, r0, max_iter, stop, tiny, done=None):
     """Per-lane right-preconditioned BiCGStab from the iterate x, whose
     residual is r0.
 
-    ``stop(r_new)`` is each lane's convergence test.  A lane iterates
+    ``precond(v)`` applies M^-1 (Jacobi: ``minv * v``).  ``stop(r_new)``
+    is each lane's convergence test.  A lane iterates
     while not done (``done``: lanes that start done), finite and under
     ``max_iter``; the update is taken only by the lanes that were
     iterating, so a lane stops as it would alone.  Returns (x,
@@ -510,11 +627,11 @@ def _krylov(mv, minv, x, r0, max_iter, stop, tiny, done=None):
         with span("pe.bicgstab.burst"):
             for _ in range(min(CHECK_EVERY, max_iter - k)):
                 run = (~done) & ok & (it < max_iter)
-                p_hat = minv * p
+                p_hat = precond(p)
                 v = mv(p_hat)
                 alpha = rho / _safe(_dot(r_hat, v), tiny)
                 s = r - alpha[:, None] * v
-                s_hat = minv * s
+                s_hat = precond(s)
                 t = mv(s_hat)
                 omega = _dot(t, s) / _safe(_dot(t, t), tiny)
                 x_new = (x + alpha[:, None] * p_hat
@@ -544,35 +661,62 @@ def _krylov(mv, minv, x, r0, max_iter, stop, tiny, done=None):
 def bicgstab(rows, cols, vals, b, n: int, x0=None, tol: float = 1e-10,
              max_iter: int = 400, diag_floor: float = 1e-9,
              layout: COOLayout = None):
-    """Jacobi-preconditioned BiCGStab on a COO system, in b's dtype.
+    """Preconditioned BiCGStab on a COO system, in b's dtype: Jacobi
+    first, escalating to the chain preconditioner.
 
     b (B, n) or (n,); vals (nnz,) or (B, nnz); x0 like b.  Returns (x,
     converged, iterations), per lane.  ``layout``: a prebuilt
     :class:`COOLayout` of (rows, cols) (the ``Circuit`` route caches one
     per pattern).  ``diag_floor`` is kept for the JAX signature (unused
-    there too)."""
+    there too).
+
+    A pattern runs Jacobi, as the JAX package does, until a solve of it
+    leaves a lane unconverged.  That solve then runs again, with
+    :class:`ChainPreconditioner` and ``max_iter`` more iterations, on
+    the lanes that failed, each from its Jacobi iterate (from x0 where
+    that is not finite); the converged lanes keep their answers.  The
+    layout remembers it: the pattern's later solves take the chain
+    preconditioner from x0 and run no Jacobi pass.  The iterations
+    returned are both passes'."""
     lay = layout if layout is not None else COOLayout(rows, cols, n)
     b2, one = _lanes(b)
     b2 = b2.contiguous()
     dtype = b2.dtype
     vals = vals.to(dtype)
     mv = lay.bind(vals)
-    d = lay.diagonal(vals)
-    # row-max-scaled Jacobi: the diagonal where it carries the row's
-    # weight, else (structural-zero source rows) the row's max |entry|
-    row_max = lay.row_max(vals).clamp(min=1e-300)
-    minv = 1.0 / torch.where(d.abs() > 1e-3 * row_max, d, row_max)
     x = (torch.zeros_like(b2) if x0 is None
          else _lanes(x0.to(dtype))[0].contiguous())
     b_norm = _norm(b2).clamp(min=1e-300)
-    r = b2 - mv(x)
 
     def stop(r_new):
         return _norm(r_new) / b_norm < tol
 
-    x, it, ok = _krylov(mv, minv, x, r, max_iter, stop, 1e-300)
-    res = _norm(b2 - mv(x)) / b_norm
-    conv = (res < tol * 10.0) & ok
+    def solve(precond, x, done=None):
+        """One BiCGStab pass from x: (x, iterations, converged)."""
+        x, it, ok = _krylov(mv, precond, x, b2 - mv(x), max_iter, stop,
+                            1e-300, done=done)
+        return x, it, (_norm(b2 - mv(x)) / b_norm < tol * 10.0) & ok
+
+    if lay.chain_first:
+        x, it, conv = solve(ChainPreconditioner(lay, vals), x)
+    else:
+        d = lay.diagonal(vals)
+        # row-max-scaled Jacobi: the diagonal where it carries the row's
+        # weight, else (structural-zero source rows) the row's max |entry|
+        row_max = lay.row_max(vals).clamp(min=1e-300)
+        minv = 1.0 / torch.where(d.abs() > 1e-3 * row_max, d, row_max)
+        x_j, it, conv = solve(lambda v: minv * v, x)
+        if host_read(conv.all(), "bicgstab_conv"):
+            x = x_j
+        else:
+            count("bicgstab.escalations")
+            lay.chain_first = True
+            with span("pe.bicgstab.escalate"):
+                x = torch.where(torch.isfinite(x_j).all(-1, keepdim=True),
+                                x_j, x)
+                x, it2, conv = solve(ChainPreconditioner(lay, vals), x,
+                                     done=conv)
+                it = it + it2
     if one:
         return x[0], conv[0], it[0]
     return x, conv, it
@@ -623,7 +767,8 @@ def bicgstab_ell(ell, vals, b, x0=None, tol: float = 1e-10,
         # a lane whose residual already meets tol takes no pass; a pass
         # that goes non-finite contributes dx = 0; the f64 residual below
         # is the sole convergence verdict
-        dx, it, ok = _krylov(mv32, minv, torch.zeros_like(r32), r32,
+        dx, it, ok = _krylov(mv32, lambda v: minv * v,
+                             torch.zeros_like(r32), r32,
                              max_iter, stop, 1e-30, done=~need)
         x = x + torch.where(ok[:, None], dx, 0.0).to(f64) * scale
         total = total + it

@@ -8,7 +8,9 @@ tridiagonal plus one voltage-source border row / column.  Two solvers:
 * ``tridiag_solve`` — parallel cyclic reduction (PCR): ceil(log2 N)
   rounds of shifts and fused multiply-adds, no sequential dependence;
   ``border_solve`` eliminates the border by a Schur complement (two PCR
-  solves) with residual refinement passes.
+  solves) with residual refinement passes; ``PCRFactor`` keeps PCR's
+  right-side-independent rounds for repeated solves with one T (the
+  sparse route's chain preconditioner, ``ops/sparse.py``).
 * ``SpikeFactor`` — chunked (SPIKE) elimination for N in the 1e8 range:
   C chunks of M rows, each solved by Thomas, whose pivots come from a
   sequential recurrence (on the device, ``_thomas_factor``, or in true
@@ -85,6 +87,54 @@ def tridiag_solve(dl, d, du, b):
         a, c, d = a_new, c_new, d_new
         s *= 2
     return x / d
+
+
+class PCRFactor:
+    """``tridiag_solve`` for one T and many right sides: the a / c / d
+    recursion, which does not depend on the right side, runs once here,
+    keeping each round's (alpha, gamma) and the final diagonal; ``solve``
+    runs only the right side's recursion.
+
+    dl, d, du share one shape (..., N); ``dl[..., 0]`` and ``du[..., -1]``
+    are ignored (dropped by a slice, with no scalar written into a tensor,
+    so neither the factor nor a solve waits for the device).  Holds
+    2 ceil(log2 N) arrays of T's shape."""
+
+    def __init__(self, dl, d, du):
+        n = d.shape[-1]
+        zero = d.new_zeros(d.shape[:-1] + (1,))
+        a = torch.cat([zero, dl[..., 1:]], dim=-1)
+        c = torch.cat([du[..., :-1], zero], dim=-1)
+        self.rounds = []
+        s = 1
+        while s < n:
+            alpha = -a / _shift_down(d, s, 1.0)
+            gamma = -c / _shift_up(d, s, 1.0)
+            a_new = alpha * _shift_down(a, s, 0.0)
+            c_new = gamma * _shift_up(c, s, 0.0)
+            d = (d + alpha * _shift_down(c, s, 0.0)
+                 + gamma * _shift_up(a, s, 0.0))
+            a, c = a_new, c_new
+            self.rounds.append((s, alpha, gamma))
+            s *= 2
+        self.d = d
+
+    def solve(self, b):
+        """T^-1 b for b (..., N) broadcasting against the factor's shape
+        (a factor of (B, N) solves (k, B, N) at once).  A round is a copy
+        of its first s entries and two multiply-adds on slices, in
+        ``tridiag_solve``'s order: x + alpha x[i - s], then + gamma
+        x[i + s] (alpha is 0 on the first s entries, gamma on the last
+        s)."""
+        x = b.expand(torch.broadcast_shapes(b.shape, self.d.shape))
+        for s, alpha, gamma in self.rounds:
+            y = torch.empty_like(x)
+            y[..., :s] = x[..., :s]
+            torch.addcmul(x[..., s:], alpha[..., s:], x[..., :-s],
+                          out=y[..., s:])
+            y[..., :-s].addcmul_(gamma[..., :-s], x[..., s:])
+            x = y
+        return x / self.d
 
 
 def tridiag_matvec(dl, d, du, x):

@@ -22,10 +22,14 @@
 
 Spans at the layer boundaries (nested as the host's calls):
 ``pe.newton_solve`` > ``pe.assemble``, ``pe.bicgstab`` >
-``pe.bicgstab.burst`` > ``pe.coo_matvec``, ``pe.sync.*``;
-``pe.border_solve`` > ``pe.refine`` > ``pe.pcr``.  Counters:
+``pe.bicgstab.burst`` > ``pe.coo_matvec``, ``pe.chain_apply``,
+``pe.sync.*``; ``pe.bicgstab`` > ``pe.chain_factor``,
+``pe.bicgstab.escalate`` (the chain preconditioner's pass after Jacobi
+failed); ``pe.border_solve`` > ``pe.refine`` > ``pe.pcr``.  Counters:
 ``host_syncs``; ``bicgstab.iterations_launched`` (iterations that every
-lane of a BiCGStab call ran on the device, stopped lanes included).
+lane of a BiCGStab call ran on the device, stopped lanes included);
+``bicgstab.escalations`` (Jacobi solves that failed and ran again with
+the chain preconditioner); ``chain.factors``, ``chain.applies``.
 """
 
 from __future__ import annotations

@@ -1095,6 +1095,49 @@ def test_bicgstab_card_takes_strided_b_and_float32(cuda):
 
 
 @pytest.mark.cuda
+def test_chain_preconditioner_card_matches_cpu(cuda):
+    """The random-link mesh at 2,000 nodes and 20 links, where Jacobi
+    fails: on the card and on the CPU ``bicgstab`` escalates once to the
+    chain preconditioner and converges, both within 1e-5 of max|x| of
+    scipy's direct solve (``tests/test_torch_sparse_chain.py``'s
+    tolerance) and of each other; the marked layout's next solve on the
+    card runs the chain alone, and a repeat of it is bit-identical."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    from phy_engine_tpu_torch import trace
+    from phy_engine_tpu_torch.ops import sparse
+    rows, cols, vals, z = workloads.sparse_mesh_coo(2000, 20)
+    n = len(z)
+    xe = spl.splu(sp.csc_matrix((vals, (rows, cols)), shape=(n, n))).solve(z)
+    scale = np.abs(xe).max()
+    zb = np.stack([z, 0.7 * z])
+    out, lays = {}, {}
+    for dev in ("cpu", cuda):
+        lays[str(dev)] = lay = sparse.COOLayout(rows, cols, n)
+        before = trace.counters().get("bicgstab.escalations", 0)
+        out[str(dev)] = sparse.bicgstab(
+            None, None, torch.as_tensor(vals, device=dev),
+            torch.as_tensor(zb, device=dev), n, layout=lay)
+        assert trace.counters()["bicgstab.escalations"] == before + 1
+        assert lay.chain_first
+    for x, ok, it in out.values():
+        assert bool(ok.all()) and int(it.max()) > 400
+        x = x.cpu().numpy()
+        assert np.abs(x[0] - xe).max() <= 1e-5 * scale
+        assert np.abs(x[1] - 0.7 * xe).max() <= 1e-5 * scale
+    assert float((out[str(cuda)][0].cpu() - out["cpu"][0]).abs().max()) \
+        <= 1e-5 * scale
+    lay = lays[str(cuda)]
+    args = (None, None, torch.as_tensor(vals, device=cuda),
+            torch.as_tensor(zb, device=cuda), n)
+    x1, ok1, it1 = sparse.bicgstab(*args, layout=lay)
+    x2, ok2, it2 = sparse.bicgstab(*args, layout=lay)
+    assert bool(ok1.all()) and int(it1.max()) < 100
+    assert torch.equal(x1, x2) and torch.equal(it1, it2)
+
+
+@pytest.mark.cuda
 def test_circuit_float32_sparse_route_runs_on_the_card(cuda):
     """``Circuit(dtype=float32)`` on the sparse route runs its products
     through the float32 kernel and ends as the same Circuit does on the

@@ -114,6 +114,7 @@ MESH_PARENTS = {
     "pe.sync.bicgstab_stop": {"pe.bicgstab"},
     "pe.coo_matvec": {"pe.bicgstab", "pe.bicgstab.burst"},
     "pe.sync.shadow": {"pe.bicgstab"},
+    "pe.sync.bicgstab_conv": {"pe.bicgstab"},
 }
 LADDER_PARENTS = {
     "pe.border_solve": {None},
@@ -180,7 +181,8 @@ def test_host_syncs_count_every_sync_site(route, mesh, ladder):
         stops = names.count("pe.sync.bicgstab_stop")
         assert stops == math.ceil(d["bicgstab.iterations_launched"]
                                   / sparse.CHECK_EVERY)
-        assert d["host_syncs"] == stops + 1          # and the shadow's copy
+        # and the shadow's copy and the read of whether Jacobi converged
+        assert d["host_syncs"] == stops + 2
     else:
         # two edge writes in each of six PCR solves and four matvecs
         assert d["host_syncs"] == 2 * (6 + 4)

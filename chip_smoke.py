@@ -301,12 +301,24 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               own.  Prints build and lowering seconds, BiCGStab
               iterations and time, each analysis's wall (CUDA events) and
               peak device memory.
-17. 10^6 ladder — workloads.ladder_dc (bench_ladder.py's default mode,
-              the reference's 1000000xR.cpp): netlist, assemble_sparse on
-              the card, the host's tridiagonal + border extraction, then
-              ops/tridiag.py::border_solve (PCR, refine 4), five timed
-              solves with varied right sides; the ramp within 1e-6 V of
-              exact, the source current within 1e-9 + 1e-6 I of -V/(N R).
+17. 10^6 ladder — first the partitioned tridiagonal kernel
+              (tridiag_part64, csrc/tridiag_part.cu) at the ladder1e6.dc
+              cell's shape: a random diagonally dominant T of 10^6 rows
+              and B = 16 right sides on the card, its factor and its solve
+              against the plain twin (part_factor_plain /
+              part_solve_plain) on the same card tensors, bit for bit, a
+              repeat bit-identical, the residual |T x - b| within 1e-12 of
+              |b|; the solve's time (CUDA events, P C C P) beside its bytes
+              bound, the factor's, the twin's and one PCR solve's
+              (tridiag_solve, the route border_solve took before) at the
+              same shape.  Then workloads.ladder_dc (bench_ladder.py's
+              default mode, the reference's 1000000xR.cpp): netlist,
+              assemble_sparse on the card, the host's tridiagonal + border
+              extraction, then ops/tridiag.py::border_solve (on the card
+              the partitioned kernel, refine 4; its launches counted for
+              the kernels line), five timed solves with varied right
+              sides; the ramp within 1e-6 V of exact, the source current
+              within 1e-9 + 1e-6 I of -V/(N R).
               Phases 17-19 each profile one more solve (torch.profiler):
               device operations, device time and the idle share of the
               solve's wall.
@@ -328,7 +340,8 @@ Phases (each prints one line; any failure raises, exit code non-zero):
 
 Then it prints the nvidia-smi line, one JSON line with each kernel's
 measurements (the GJ pair also at phase 12's shape, "...@256x128", with
-phase 12's launches; coo_spmm with phase 16's), and, last, {"ok": true,
+phase 12's launches; coo_spmm with phase 16's, tridiag_part64 with
+phase 17's), and, last, {"ok": true,
 "device": {...}}.
 """
 
@@ -351,7 +364,8 @@ from phy_engine_tpu_torch import (ACSweepType, AnalyzeType, Circuit,
                                   Environment, workloads)
 from phy_engine_tpu_torch.digital import turbo, turbo_cases
 from phy_engine_tpu_torch.engine import analog
-from phy_engine_tpu_torch.ops import _build, gj, linsolve, lu_block, sparse
+from phy_engine_tpu_torch.ops import (_build, gj, linsolve, lu_block, sparse,
+                                      tridiag)
 from phy_engine_tpu_torch.ops.gj_cases import TOL, lane_rel_err, singular_lane, system
 from phy_engine_tpu_torch.parallel.batch import (batch_params, batch_state,
                                                  batch_x, batched_op,
@@ -389,6 +403,10 @@ COO = dict(name="coo_spmm", wrapper=sparse.coo_spmm,
            replaces="none (phy_engine_tpu/ops/sparse.py:28 coo_matvec, "
                     "fused by XLA)")
 TRACE_TOL = 1e-6
+TPART = dict(name="tridiag_part64", wrapper=tridiag.tridiag_part64,
+             source="phy_engine_tpu_torch/ops/csrc/tridiag_part.cu",
+             replaces="none (phy_engine_tpu/ops/tridiag.py:75 "
+                      "tridiag_solve, PCR in XLA)")
 AT128 = "@256x128"      # the GJ pair at phase 12's shape, (B, n) = (256, 128)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and FP32
@@ -2565,11 +2583,68 @@ def phase16_mesh(dev, smi, cpu_run):
     return r, n_coo
 
 
+def tridiag_part_kernel(dev, smi, lanes=16, n=10 ** 6, reps=20):
+    """Phase 17's first part: tridiag_part64 against its plain twin at the
+    ladder1e6.dc cell's shape (see the module docstring).  Returns the
+    kernel's measurements for the kernels line."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    dl, du = -torch.rand(n, **f64), -torch.rand(n, **f64)
+    d = dl.abs() + du.abs() + 0.5 + torch.rand(n, **f64)
+    b = torch.randn((lanes, n), **f64)
+    fac = tridiag.PartitionFactor(dl, d, du)
+    levels, direct = tridiag.part_factor_plain(dl, d, du)
+    same = all(torch.equal(u, v) for lk, lp in zip(fac.levels, levels)
+               for u, v in zip(lk[1:], lp[1:]))
+    same &= all(torch.equal(u, v) for u, v in zip(fac.direct[1:], direct[1:]))
+    check(same, "tridiag_part64: the card's factor differs from the twin's")
+    x, x2 = fac.solve(b), fac.solve(b)
+    plain = tridiag.part_solve_plain(fac.levels, fac.direct, b)
+    err = float((x - plain).abs().max())
+    check(torch.equal(x, x2), "tridiag_part64: a repeat run is not "
+          "bit-identical")
+    check(torch.equal(x, plain), f"tridiag_part64 differs from the plain "
+          f"twin by {err:.3e}")
+    res = float((tridiag.tridiag_matvec(dl, d, du, x) - b).abs().max())
+    check(res <= 1e-12 * float(b.abs().max()), f"tridiag_part64: residual "
+          f"{res:.3e}")
+    twin = lambda: tridiag.part_solve_plain(fac.levels, fac.direct, b)
+    t = [time_ms(twin, 3), time_ms(lambda: fac.solve(b), reps),
+         time_ms(lambda: fac.solve(b), reps), time_ms(twin, 3)]
+    factor_ms = time_ms(lambda: tridiag.PartitionFactor(dl, d, du), reps)
+    pcr_ms = time_ms(lambda: tridiag.tridiag_solve(dl, d, du, b), 3)
+    # the least bytes of a solve: b read once, x written once, the factor
+    # (every level's arrays) read once
+    fbytes = 8 * sum(v.numel() for lev in fac.levels for v in lev[1:])
+    fbytes += 8 * sum(v.numel() for v in fac.direct[1:])
+    nbytes = 8 * 2 * lanes * n + fbytes
+    r = {"max_abs_err": err, "ms": (t[1] + t[2]) / 2,
+         "plain_ms": (t[0] + t[3]) / 2, "library_ms": None}
+    # 12 operations a row and lane: two multiplies and a subtraction in
+    # each of the two sweeps of each of the two passes
+    r["bound_ms"], r["bound_by"] = bound(nbytes, 12 * lanes * n, FP64_FLOPS)
+    say(17, f"tridiag_part64 at (B, n) = ({lanes}, {n}), levels "
+        f"{tridiag.part_sizes(n)}: {r['ms']:.4f} ms a solve "
+        f"({100 * r['bound_ms'] / r['ms']:.1f} % of its "
+        f"{r['bound_ms']:.4f} ms {r['bound_by']} bound, "
+        f"{nbytes / 1e6:.1f} MB), factor {factor_ms:.4f} ms, plain twin "
+        f"{r['plain_ms']:.4f} ms (P C C P: "
+        f"{', '.join(f'{v:.4f}' for v in t)}), PCR (tridiag_solve) "
+        f"{pcr_ms:.4f} ms, on {smi}; bit for bit the twin, factor and "
+        f"solve; repeat bit-identical; max |T x - b| {res:.3e}")
+    return r
+
+
 def phase17_ladder(dev, smi):
-    """The 10^6-resistor ladder (see the module docstring, phase 17)."""
+    """The 10^6-resistor ladder (see the module docstring, phase 17).
+    Returns the kernel's measurements and its launches in the ladder."""
+    r17 = tridiag_part_kernel(dev, smi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = tridiag.tridiag_part64.launches
     r = workloads.ladder_dc(10 ** 6, device=dev)
+    launched = tridiag.tridiag_part64.launches - before
+    check(launched > 0, "the 10^6 ladder never launched tridiag_part64")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     V = workloads.LADDER_V
     check(r["max_ramp_err"] < r["tol"] * V, f"10^6 ladder: ramp error "
@@ -2580,13 +2655,15 @@ def phase17_ladder(dev, smi):
     say(17, f"10^6-resistor ladder (1000000xR.cpp): netlist + IR "
         f"{r['build_s']:.2f} s, assemble_sparse on the card + fetch "
         f"{r['assemble_s'] * 1e3:.1f} ms, host extraction "
-        f"{r['extract_s'] * 1e3:.1f} ms; border_solve (PCR, refine 4) "
+        f"{r['extract_s'] * 1e3:.1f} ms; border_solve (refine 4) "
         f"{best * 1e3:.2f} ms a solve (best of {len(r['solve_s'])}: "
         f"{', '.join(f'{s * 1e3:.2f}' for s in r['solve_s'])} ms), "
         f"{1.0 / best:.2f} solves/s on {smi}; max ramp error "
         f"{r['max_ramp_err']:.3e} V (gate {r['tol'] * V:.1e}), source "
-        f"current {r['i_src']:.9e} A; peak device memory {peak:.0f} MiB")
+        f"current {r['i_src']:.9e} A; peak device memory {peak:.0f} MiB; "
+        f"tridiag_part64 launches {launched}")
     say_idle(17, "border_solve", r["again"], best)
+    return r17, launched
 
 
 def say_idle(phase, what, fn, wall_s):
@@ -2685,13 +2762,14 @@ def large_systems(dev, smi):
     """Phases 16-19.  The CPU references run beside them in processes of
     their own — phase 16's sequence on the CPU and phase 19's scipy
     SparseLU (minutes at L = 10^4) — which a failure terminates.  Returns
-    phase 16's (coo_spmm measurements, launches)."""
+    {kernel: (measurements, launches)} of phases 16 and 17."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"))
     try:
         cpu_run = pool.submit(mesh_sequence, "cpu", MESH_CPU_STEPS)
         splu_run = pool.submit(splu_cases, (10_000, 1_000))
+        kernels = {}
         for phase, fn, args in ((16, phase16_mesh, (dev, smi, cpu_run)),
                                 (17, phase17_ladder, (dev, smi)),
                                 (18, phase18_ladder, (dev, smi)),
@@ -2699,10 +2777,10 @@ def large_systems(dev, smi):
                                  (dev, smi, splu_run))):
             t0 = time.perf_counter()
             out = fn(*args)
-            if phase == 16:
-                p16 = out
+            if phase in (16, 17):
+                kernels[(COO, TPART)[phase - 16]["name"]] = out
             say(phase, f"phase {phase} took {time.perf_counter() - t0:.1f} s")
-        return p16
+        return kernels
     except BaseException:
         for proc in list((pool._processes or {}).values()):
             proc.terminate()
@@ -2890,14 +2968,15 @@ def main():
     # phases 16-19: large systems.  The CPU references run beside them in
     # processes of their own: phase 16's sequence on the CPU and phase
     # 19's scipy SparseLU (minutes at L = 10^4)
-    results[COO["name"]], launches[COO["name"]] = large_systems(dev, smi)
+    for name, (r, count) in large_systems(dev, smi).items():
+        results[name], launches[name] = r, count
 
     print(smi)
     meta = {k: dict(source=v["source"], replaces=v["replaces"])
             for k, v in KERNELS.items()}
     for name in launches12:
         meta[name + AT128] = meta[name]
-    for k in (TURBO, COO):
+    for k in (TURBO, COO, TPART):
         meta[k["name"]] = dict(source=k["source"], replaces=k["replaces"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name]["source"],

@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles each source of ``csrc/`` (``gj.cu``, ``lu_block.cu``,
-``turbo.cu``, ``coo_spmm.cu``) for Hopper (``sm_90a``), one process per
-source, all started together, and links the objects into one shared
-library with a plain C interface, which ``ctypes`` loads — no PyTorch
-headers, so the build takes seconds.
+``turbo.cu``, ``coo_spmm.cu``, ``tridiag_part.cu``) for Hopper
+(``sm_90a``), one process per source, all started together, and links
+the objects into one shared library with a plain C interface, which
+``ctypes`` loads — no PyTorch headers, so the build takes seconds.
 The library is written, at first use, to ``build/phy_engine_tpu_torch/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash
 of the sources and flags so an edited source is rebuilt and an unchanged
@@ -28,7 +28,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gj.cu", "lu_block.cu", "turbo.cu", "coo_spmm.cu")
+SOURCES = ("gj.cu", "lu_block.cu", "turbo.cu", "coo_spmm.cu",
+           "tridiag_part.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phy_engine_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -125,6 +126,16 @@ def load_library() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     for fn in (lib.pe_coo_spmm64, lib.pe_coo_spmm32):
         fn.argtypes = [p] * 4 + [ll, p, ll, p] + [i] * 4 + [p]
+        fn.restype = i
+    lib.pe_tridiag_part_factor64.argtypes = [p] * 3 + [i] + [p] * 8
+    lib.pe_tridiag_part_direct_factor64.argtypes = [p] * 3 + [i] + [p] * 4
+    lib.pe_tridiag_part_reduce64.argtypes = [p, p, i, i] + [p] * 7
+    lib.pe_tridiag_part_expand64.argtypes = [p, p, i, i] + [p] * 7
+    lib.pe_tridiag_part_direct64.argtypes = [p, p, i, i] + [p] * 5
+    for fn in (lib.pe_tridiag_part_factor64,
+               lib.pe_tridiag_part_direct_factor64,
+               lib.pe_tridiag_part_reduce64, lib.pe_tridiag_part_expand64,
+               lib.pe_tridiag_part_direct64):
         fn.restype = i
     lib.pe_cuda_error_string.argtypes = [i]
     lib.pe_cuda_error_string.restype = ctypes.c_char_p

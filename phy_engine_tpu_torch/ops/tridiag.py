@@ -11,6 +11,13 @@ tridiagonal plus one voltage-source border row / column.  Two solvers:
   solves) with residual refinement passes; ``PCRFactor`` keeps PCR's
   right-side-independent rounds for repeated solves with one T (the
   sparse route's chain preconditioner, ``ops/sparse.py``).
+* ``PartitionFactor`` — a partitioned solve for one T shared by every
+  lane: Thomas within chunks of ``PART_M`` rows, the chunks' separators
+  a smaller tridiagonal system of the same kind, recursively.  On a CUDA
+  tensor it is the hand-written kernel of ``csrc/tridiag_part.cu``
+  (``tridiag_part64``); its plain twin ``part_factor_plain`` /
+  ``part_solve_plain`` serves CPU tensors.  ``border_solve`` takes it for
+  CUDA float64 inputs with T and the border e 1-D.
 * ``SpikeFactor`` — chunked (SPIKE) elimination for N in the 1e8 range:
   C chunks of M rows, each solved by Thomas, whose pivots come from a
   sequential recurrence (on the device, ``_thomas_factor``, or in true
@@ -20,9 +27,9 @@ tridiagonal plus one voltage-source border row / column.  Two solvers:
   LU-factored once on the host (LAPACK ``dgbtrf`` / ``dgbtrs`` through
   scipy).
 
-Everything is torch ops in the input dtype (float64 for the ladders) over
-arbitrary leading batch dimensions; there is no hand kernel (the JAX
-package has no Pallas kernel here either).  ``lax.scan`` / ``lax.map``
+Everything else is torch ops in the input dtype (float64 for the
+ladders) over arbitrary leading batch dimensions (the JAX package has no
+Pallas kernel here).  ``lax.scan`` / ``lax.map``
 become host loops; ``jax.lax.associative_scan`` becomes a Kogge-Stone
 scan (``_linrec_scan``), which rounds differently from XLA's odd-even
 scan, so results agree with the JAX package to a tolerance, not bit for
@@ -30,6 +37,10 @@ bit.
 """
 
 from __future__ import annotations
+
+import contextlib
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -555,13 +566,356 @@ def spike_border_solve(fac, t_e, ete, z, e, rhs_b, refine: int = 2):
     return v, i
 
 
+# ---------------------------------------------------------------------------
+# The partitioned solve (``csrc/tridiag_part.cu`` and its plain twin)
+
+PART_M = 32        # rows a chunk (31 interior, 1 separator): the .cu's kM
+PART_DIRECT = 64   # a level of at most this many rows: Thomas, whole
+_PI = PART_M - 1   # interior rows a chunk
+# the rows of a level's ``edge`` (10, C), as ``tridiag_part.cu``'s enum Edge
+_A0, _CL, _AS, _CQ, _DS, _CS, _GLF, _GLL, _GRF, _GRL = range(10)
+
+
+class PartLevel(NamedTuple):
+    """One level of a :class:`PartitionFactor`: n rows in C = ceil(n /
+    PART_M) chunks; w, ip, t (31, C) the interiors' Thomas coefficients
+    (row j of chunk k at [j, k]); edge (10, C) the couplings and the
+    spikes' tips."""
+    n: int
+    w: torch.Tensor
+    ip: torch.Tensor
+    t: torch.Tensor
+    edge: torch.Tensor
+
+
+class PartDirect(NamedTuple):
+    """The last level, solved by Thomas over its n rows: w, ip, t (n,)."""
+    n: int
+    w: torch.Tensor
+    ip: torch.Tensor
+    t: torch.Tensor
+
+
+def part_sizes(n: int) -> list:
+    """The levels' sizes: n, then ceil(n / PART_M) while a level has more
+    than PART_DIRECT rows; the last is the directly solved level."""
+    sizes = [int(n)]
+    while sizes[-1] > PART_DIRECT:
+        sizes.append(-(-sizes[-1] // PART_M))
+    return sizes
+
+
+def _part_diags(a, d, c, n: int, rows: int):
+    """A level's diagonals padded with identity rows to ``rows``, a[0] and
+    c[n - 1] dropped by slices."""
+    a = torch.cat([a.new_zeros(1), a[1:n], a.new_zeros(rows - n)])
+    c = torch.cat([c[:n - 1], c.new_zeros(rows - n + 1)])
+    d = torch.cat([d[:n], d.new_ones(rows - n)])
+    return a, d, c
+
+
+def _part_thomas(a, d, c):
+    """Thomas's coefficients along the last axis of (..., m) diagonals:
+    lists of m tensors w = a / p[-1], ip = 1 / p, t = c / p (w[0] zero),
+    each quotient a product with ip."""
+    ip = [torch.reciprocal(d[..., 0])]
+    w, t = [torch.zeros_like(ip[0])], [c[..., 0] * ip[0]]
+    for j in range(1, d.shape[-1]):
+        w.append(a[..., j] * ip[-1])
+        ip.append(torch.reciprocal(d[..., j] - w[-1] * c[..., j - 1]))
+        t.append(c[..., j] * ip[-1])
+    return w, ip, t
+
+
+def _part_interior(w, ip, t, r):
+    """T_k^-1 r over the interiors: r 31 (..., C) right sides, w / ip / t
+    indexable by row; the kernel's operations in its order."""
+    r = list(r)
+    for j in range(1, _PI):
+        r[j] = r[j] - w[j] * r[j - 1]
+    r[_PI - 1] = r[_PI - 1] * ip[_PI - 1]
+    for j in range(_PI - 2, -1, -1):
+        r[j] = r[j] * ip[j] - t[j] * r[j + 1]
+    return r
+
+
+def part_factor_plain(dl, d, du):
+    """The plain twin of the card's factor: ([PartLevel], PartDirect) for
+    T (dl, d, du), each (n,); dl[0] and du[-1] are ignored."""
+    a, dd, c = dl, d, du
+    levels = []
+    sizes = part_sizes(d.shape[-1])
+    for n, C in zip(sizes, sizes[1:]):
+        a, dd, c = (v.reshape(C, PART_M)
+                    for v in _part_diags(a, dd, c, n, C * PART_M))
+        w, ip, t = _part_thomas(a[:, :_PI], dd[:, :_PI], c[:, :_PI])
+        zero = torch.zeros_like(dd[:, 0])
+        gl = _part_interior(w, ip, t, [a[:, 0]] + [zero] * (_PI - 1))
+        gr = _part_interior(w, ip, t, [zero] * (_PI - 1) + [c[:, _PI - 1]])
+        z1 = zero[:1]
+        a_s, d_s, c_s = a[:, -1], dd[:, -1], c[:, -1]
+        edge = torch.stack([a[:, 0], c[:, _PI - 1], a_s,
+                            torch.cat([z1, c_s[:-1]]), d_s, c_s,
+                            gl[0], gl[-1], gr[0], gr[-1]])
+        levels.append(PartLevel(n, torch.stack(w), torch.stack(ip),
+                                torch.stack(t), edge))
+        glf = torch.cat([gl[0][1:], z1])
+        grf = torch.cat([gr[0][1:], z1])
+        a = -(a_s * gl[-1])
+        dd = (d_s - a_s * gr[-1]) - c_s * glf
+        c = -(c_s * grf)
+    n = sizes[-1]
+    w, ip, t = _part_thomas(*_part_diags(a, dd, c, n, n))
+    return levels, PartDirect(n, torch.stack(w), torch.stack(ip),
+                              torch.stack(t))
+
+
+def _part_rhs(p, q, n: int, rows: int):
+    """A level's right side p - q[+1] (B, n) (q None at the top level),
+    padded with zeros to ``rows``."""
+    if q is not None:
+        p = p - torch.cat([q[:, 1:], q.new_zeros(q.shape[0], 1)], dim=1)
+    return torch.cat([p, p.new_zeros(p.shape[0], rows - n)], dim=1)
+
+
+def part_solve_plain(levels, direct, b):
+    """The plain twin of the card's solve: T^-1 b for b (n,) or (B, n)
+    through a factor's levels (``part_factor_plain``'s or the card's)."""
+    ps, qs = [b.reshape(-1, b.shape[-1])], [None]
+    for lev in levels:
+        C = lev.edge.shape[1]
+        R = _part_rhs(ps[-1], qs[-1], lev.n, C * PART_M).reshape(-1, C,
+                                                                  PART_M)
+        y = _part_interior(lev.w, lev.ip, lev.t, R[..., :_PI].unbind(-1))
+        ps.append(R[..., -1] - lev.edge[_AS] * y[-1])
+        qs.append(lev.edge[_CQ] * y[0])
+    r = _part_rhs(ps[-1], qs[-1], direct.n, direct.n)
+    z = [r[:, 0]]
+    for i in range(1, direct.n):
+        z.append(r[:, i] - direct.w[i] * z[-1])
+    z[-1] = z[-1] * direct.ip[-1]
+    for i in range(direct.n - 2, -1, -1):
+        z[i] = z[i] * direct.ip[i] - direct.t[i] * z[i + 1]
+    x = torch.stack(z, dim=1)
+    for lev, p, q in zip(levels[::-1], ps[-2::-1], qs[-2::-1]):
+        C = lev.edge.shape[1]
+        R = _part_rhs(p, q, lev.n, C * PART_M).reshape(-1, C, PART_M)
+        r = list(R[..., :_PI].unbind(-1))
+        xp = torch.cat([x.new_zeros(x.shape[0], 1), x[:, :-1]], dim=1)
+        r[0] = r[0] - lev.edge[_A0] * xp
+        r[-1] = r[-1] - lev.edge[_CL] * x
+        y = _part_interior(lev.w, lev.ip, lev.t, r)
+        x = torch.stack(y + [x], dim=-1).reshape(x.shape[0], -1)[:, :lev.n]
+    return x.reshape(b.shape)
+
+
+class PartitionFactor:
+    """T (dl, d, du), each (n,) and shared by every lane, factored for the
+    partitioned solve (``dl[0]`` and ``du[-1]`` ignored).  On the CPU the
+    plain twin factors and solves; on a CUDA device the kernel of
+    ``csrc/tridiag_part.cu`` does (float64, contiguous, one device), or it
+    raises.  Nothing is kept across factors: each holds its own levels
+    (~3.4 arrays of n float64 at the top level)."""
+
+    @spanned("pe.tridiag_part")
+    def __init__(self, dl, d, du):
+        ts = (("dl", dl), ("d", d), ("du", du))
+        for name, v in ts:
+            if not isinstance(v, torch.Tensor) or v.dim() != 1:
+                raise ValueError(f"{name} must be a 1-D tensor")
+        if not dl.shape == d.shape == du.shape or d.shape[0] < 1:
+            raise ValueError(f"dl, d, du of one length n >= 1 expected, got "
+                             f"{dl.shape[0]}, {d.shape[0]}, {du.shape[0]}")
+        self.n, self.device = int(d.shape[0]), d.device
+        if all(v.device.type == "cpu" for _n, v in ts):
+            self.levels, self.direct = part_factor_plain(dl, d, du)
+        else:
+            self.levels, self.direct = _part_factor_card(ts)
+
+    @spanned("pe.tridiag_part")
+    def solve(self, b):
+        """T^-1 b for b (n,) or (B, n): the plain twin where the factor and
+        b lie on the CPU, else the kernel (b float64, contiguous, on the
+        factor's device), or it raises."""
+        _part_b_check(self, b)
+        if self.device.type == "cpu" and b.device.type == "cpu":
+            return part_solve_plain(self.levels, self.direct, b)
+        return tridiag_part64(self, b)
+
+
+@contextlib.contextmanager
+def _launcher(device):
+    """``launch(fn, *args)`` for a run of the kernels' launches on
+    ``device``'s current stream, the device made current and the stream
+    taken once for the run (per launch, as ``gj._launch`` does, they cost
+    ~18 us of the host's time a launch, which the device waits out where
+    the launches are small: 0.3 ms of a ladder sweep's 6.6, measured on an
+    H100).  Each launch raises on a CUDA error."""
+    from ._build import load_library
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+        def launch(fn, *args):
+            err = getattr(lib, fn)(*[a.data_ptr() if torch.is_tensor(a)
+                                     else a for a in args], stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"{fn} failed to launch: CUDA error {err} "
+                    f"({lib.pe_cuda_error_string(err).decode()})")
+        yield launch
+
+
+def _part_b_check(fac, b):
+    """b (n,) or (B, n), B >= 1, for a factor of n rows."""
+    if not isinstance(b, torch.Tensor):
+        raise TypeError("b must be a tensor")
+    if b.dim() not in (1, 2) or b.shape[-1] != fac.n or b.numel() == 0:
+        raise ValueError(f"b (n,) or (B, n) with n = {fac.n} and B >= 1 "
+                         f"expected, got {tuple(b.shape)}")
+
+
+def _part_card_check(ts, device=None):
+    """The card's terms: float64 (TypeError), CUDA, contiguous, one device
+    (ValueError)."""
+    for name, v in ts:
+        if v.dtype != torch.float64:
+            raise TypeError(f"{name} is {v.dtype}: the partitioned kernel "
+                            "takes float64")
+    for name, v in ts:
+        if v.device.type != "cuda":
+            raise ValueError(f"{name} lies on {v.device}: the partitioned "
+                             "kernel runs on a CUDA device")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if v.device != (device or ts[0][1].device):
+            raise ValueError("the partitioned solve's tensors lie on "
+                             "different devices")
+
+
+def _part_factor_card(ts):
+    """``part_factor_plain`` by the kernel: two launches a level, one for
+    the last."""
+    _part_card_check(ts)
+    a, dd, c = (v for _n, v in ts)
+    if a.shape[0] >= 2 ** 31:
+        raise ValueError(f"n = {a.shape[0]}: the kernel indexes rows in int32")
+    levels = []
+    sizes = part_sizes(a.shape[0])
+    with _launcher(a.device) as launch:
+        for n, C in zip(sizes, sizes[1:]):
+            buf = a.new_empty((3 * _PI + 13, C))
+            w, ip, t = buf[:_PI], buf[_PI:2 * _PI], buf[2 * _PI:3 * _PI]
+            edge = buf[3 * _PI:3 * _PI + 10]
+            launch("pe_tridiag_part_factor64", a, dd, c, n, w, ip, t, edge,
+                   *buf[3 * _PI + 10:])
+            tridiag_part64.launches += 2
+            levels.append(PartLevel(n, w, ip, t, edge))
+            a, dd, c = buf[3 * _PI + 10:]
+        n = sizes[-1]
+        w, ip, t = a.new_empty((3, n))
+        launch("pe_tridiag_part_direct_factor64", a, dd, c, n, w, ip, t)
+        tridiag_part64.launches += 1
+    return levels, PartDirect(n, w, ip, t)
+
+
+def tridiag_part64(fac: PartitionFactor, b):
+    """x = T^-1 b on the card by ``csrc/tridiag_part.cu`` through the
+    card's factor ``fac``: b (n,) or (B, n) float64, contiguous, on the
+    factor's device; x of b's shape.  Bit for bit the plain twin
+    ``part_solve_plain`` on the same factor; a repeat run is
+    bit-identical.  2L + 1 launches for L levels above the last (7 at n
+    = 10^6); ``tridiag_part64.launches`` counts them and the factors'."""
+    _part_b_check(fac, b)
+    if fac.device.type != "cuda":
+        raise ValueError("the factor lies on the CPU: its solve is the "
+                         "plain twin's, on CPU tensors")
+    _part_card_check((("b", b),), fac.device)
+    B = 1 if b.dim() == 1 else b.shape[0]
+    ps, qs = [b], [None]
+    d = fac.direct
+    with _launcher(b.device) as launch:
+        for lev in fac.levels:
+            p2, q2 = b.new_empty((2, B, lev.edge.shape[1]))
+            launch("pe_tridiag_part_reduce64", ps[-1], qs[-1], lev.n, B,
+                   lev.w, lev.ip, lev.t, lev.edge, p2, q2)
+            ps.append(p2)
+            qs.append(q2)
+        x = b.new_empty((B, d.n)) if fac.levels else torch.empty_like(b)
+        launch("pe_tridiag_part_direct64", ps[-1], qs[-1], d.n, B, d.w,
+               d.ip, d.t, x)
+        for lev, p, q in zip(fac.levels[::-1], ps[-2::-1], qs[-2::-1]):
+            out = (b.new_empty((B, lev.n)) if q is not None
+                   else torch.empty_like(b))
+            launch("pe_tridiag_part_expand64", p, q, lev.n, B, lev.w,
+                   lev.ip, lev.t, lev.edge, x, out)
+            x = out
+    tridiag_part64.launches += 2 * len(fac.levels) + 1
+    return x
+
+
+tridiag_part64.launches = 0
+
+
+def _part_route(dl, d, du, z, e) -> bool:
+    """``border_solve``'s choice, by what its inputs are: the partitioned
+    kernel for a lane-shared T and border (dl, d, du, e 1-D) with every
+    input float64 on a CUDA device and z (N,) or (B, N); PCR otherwise."""
+    ts = (dl, d, du, z, e)
+    return (all(isinstance(v, torch.Tensor) and v.device.type == "cuda"
+                and v.dtype == torch.float64 for v in ts)
+            and dl.dim() == d.dim() == du.dim() == e.dim() == 1
+            and z.dim() in (1, 2))
+
+
+def _residual(dl, d, du, z, v, e, i):
+    """z - T v - e i in four passes, T's corners dl[0] and du[-1] left out
+    by slices: no scalar is written into a tensor, so nothing waits for
+    the device."""
+    r = torch.addcmul(z, d, v, value=-1.0)
+    r[..., 1:].addcmul_(dl[1:], v[..., :-1], value=-1.0)
+    r[..., :-1].addcmul_(du[:-1], v[..., 1:], value=-1.0)
+    return r.addcmul_(e, i[..., None], value=-1.0)
+
+
+def border_solve_part(fac: PartitionFactor, dl, d, du, z, e, rhs_b,
+                      refine: int = 2):
+    """``border_solve``'s Schur complement and refinement for a 1-D border
+    e, with T's solves through the partitioned factor ``fac`` of (dl, d,
+    du): the same 2 + refine solves; the residual by ``_residual``, e's
+    dot products matrix-vector products; no host sync."""
+    t_e = fac.solve(e.contiguous())
+    ete = t_e @ e
+
+    def base(zz, rb):
+        t_z = fac.solve(zz.contiguous())
+        ii = (t_z @ e - rb) / ete
+        return torch.addcmul(t_z, t_e, ii[..., None], value=-1.0), ii
+
+    v, i = base(z, rhs_b)
+    for _ in range(refine):
+        with span("pe.refine"):
+            dv, di = base(_residual(dl, d, du, z, v, e, i), rhs_b - v @ e)
+            v = v + dv
+            i = i + di
+    return v, i
+
+
 @spanned("pe.border_solve")
 def border_solve(dl, d, du, z, e, rhs_b, refine: int = 2):
     """Solve the bordered system [T e; e^T 0] [v; i] = [z; rhs_b] (one
     voltage-source branch over a tridiagonal MNA core) by the Schur
-    complement: two PCR solves, i = (e^T T^-1 z - rhs_b) / (e^T T^-1 e),
+    complement: two solves, i = (e^T T^-1 z - rhs_b) / (e^T T^-1 e),
     v = T^-1 (z - e i), then ``refine`` residual refinement passes
-    (ladder Laplacians reach condition ~N^2).  Returns (v, i)."""
+    (ladder Laplacians reach condition ~N^2).  Returns (v, i).
+
+    For float64 inputs on a CUDA device with T and e 1-D (shared by every
+    lane) and z (N,) or (B, N), T's solves are the partitioned kernel's
+    (``border_solve_part`` over one ``PartitionFactor``); otherwise, and
+    on the CPU, they are PCR (``tridiag_solve``)."""
+    if _part_route(dl, d, du, z, e):
+        return border_solve_part(PartitionFactor(dl, d, du), dl, d, du, z, e,
+                                 rhs_b, refine)
     t_e = tridiag_solve(dl, d, du, e)
     ete = (e * t_e).sum(-1)
 

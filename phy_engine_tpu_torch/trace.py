@@ -9,9 +9,10 @@
   when someone profiles; there is no switch.
 * ``count(name, n)`` adds to a host-side integer counter (always on; it
   never reads a tensor).  ``counters()`` is a snapshot of every counter,
-  together with the launch counters of the five hand-written kernels'
+  together with the launch counters of the six hand-written kernels'
   wrappers (``gj_solve32``, ``gj_inverse32``, ``lu_block_inverse32``,
-  ``run_turbo``, ``coo_spmm``), which stay attributes of their wrappers.
+  ``run_turbo``, ``coo_spmm``, ``tridiag_part64``), which stay attributes
+  of their wrappers.
 * ``host_read(t, site)`` is an explicit read of the device (what
   ``t.tolist()``, ``bool(t)`` or ``t.item()`` return) inside the span
   ``pe.sync.<site>``, counted in ``host_syncs``; ``sync_site(site)`` is
@@ -25,7 +26,9 @@ Spans at the layer boundaries (nested as the host's calls):
 ``pe.bicgstab.burst`` > ``pe.coo_matvec``, ``pe.chain_apply``,
 ``pe.sync.*``; ``pe.bicgstab`` > ``pe.chain_factor``,
 ``pe.bicgstab.escalate`` (the chain preconditioner's pass after Jacobi
-failed); ``pe.border_solve`` > ``pe.refine`` > ``pe.pcr``.  Counters:
+failed); ``pe.border_solve`` > ``pe.refine`` > ``pe.pcr`` (PCR's route)
+or ``pe.tridiag_part`` (the partitioned kernel's: its factor and each
+solve).  Counters:
 ``host_syncs``; ``bicgstab.iterations_launched`` (iterations that every
 lane of a BiCGStab call ran on the device, stopped lanes included);
 ``bicgstab.escalations`` (Jacobi solves that failed and ran again with
@@ -77,10 +80,11 @@ def counters() -> dict:
     from .ops.gj import gj_inverse32, gj_solve32
     from .ops.lu_block import lu_block_inverse32
     from .ops.sparse import coo_spmm
+    from .ops.tridiag import tridiag_part64
     with _LOCK:
         out = dict(_COUNTS)
     for fn in (gj_solve32, gj_inverse32, lu_block_inverse32, run_turbo,
-               coo_spmm):
+               coo_spmm, tridiag_part64):
         out[f"{fn.__name__}.launches"] = fn.launches
     return out
 

@@ -1153,3 +1153,133 @@ def test_circuit_float32_sparse_route_runs_on_the_card(cuda):
         launched = sparse.coo_spmm.launches - before
         assert launched == 0 if dev == "cpu" else launched > 0
     assert ok["cpu"] == ok[str(cuda)]
+
+
+def _tridiag_case(n, lanes, seed=19):
+    """A random diagonally dominant T (n,) and right sides b, (n,) when
+    ``lanes`` is None, else (lanes, n), as numpy float64."""
+    rng = np.random.default_rng(seed + n)
+    dl, du = -rng.uniform(0, 1, n), -rng.uniform(0, 1, n)
+    d = np.abs(dl) + np.abs(du) + rng.uniform(0.5, 1.5, n)
+    b = rng.standard_normal((n,) if lanes is None else (lanes, n))
+    return dl, d, du, b
+
+
+def _tridiag_ref(dl, d, du, b):
+    """scipy's sparse LU of T for every right side, float64."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    A = sp.diags([dl[1:], d, du[:-1]], [-1, 0, 1], format="csc")
+    x = spl.splu(A).solve(np.atleast_2d(b).T).T
+    return x.reshape(b.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 1, 16])
+@pytest.mark.parametrize("n", [20, 1000, 100_000])
+def test_tridiag_part_matches_plain_and_scipy(cuda, n, lanes):
+    """The partitioned kernel against its plain twin on the same card
+    tensors, factor and solve bit for bit, and against scipy within 1e-12
+    of max|x|: n below one chunk (the direct level alone), n not a
+    multiple of a chunk (1000 = 31 x 32 + 8), n = 10^5 (three levels);
+    b 1-D, one lane and 16 lanes.  A repeat run is bit-identical; the
+    launches are the factor's 2L + 1 and the solve's 2L + 1 a call."""
+    from phy_engine_tpu_torch.ops import tridiag
+    arrs = _tridiag_case(n, lanes)
+    dl, d, du, b = (torch.as_tensor(a, device=cuda) for a in arrs)
+    before = tridiag.tridiag_part64.launches
+    fac = tridiag.PartitionFactor(dl, d, du)
+    x, x2 = fac.solve(b), fac.solve(b)
+    torch.cuda.synchronize()
+    L = len(tridiag.part_sizes(n)) - 1
+    assert L == {20: 0, 1000: 1, 100_000: 3}[n]
+    assert tridiag.tridiag_part64.launches - before == 3 * (2 * L + 1)
+    levels, direct = tridiag.part_factor_plain(dl, d, du)
+    for got, want in zip(fac.levels + [fac.direct], levels + [direct]):
+        assert got[0] == want[0]
+        for u, v in zip(got[1:], want[1:]):
+            assert torch.equal(u, v)
+    plain = tridiag.part_solve_plain(fac.levels, fac.direct, b)
+    assert x.shape == b.shape and x.dtype == torch.float64
+    assert torch.equal(x, x2)
+    assert torch.equal(x, plain)
+    ref = _tridiag_ref(*arrs)
+    assert np.abs(x.cpu().numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_tridiag_part_refuses_what_it_does_not_take(cuda):
+    """float32, non-contiguous and mixed-device inputs raise before any
+    launch is counted."""
+    from phy_engine_tpu_torch.ops import tridiag
+    dl, d, du, b = (torch.as_tensor(a, device=cuda)
+                    for a in _tridiag_case(1000, 4))
+    fac = tridiag.PartitionFactor(dl, d, du)
+    before = tridiag.tridiag_part64.launches
+    with pytest.raises(TypeError):
+        tridiag.PartitionFactor(dl.float(), d.float(), du.float())
+    with pytest.raises(TypeError):
+        fac.solve(b.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fac.solve(b.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        tridiag.PartitionFactor(dl, torch.stack([d, d], 1)[:, 0], du)
+    with pytest.raises(ValueError):
+        fac.solve(b.cpu())
+    with pytest.raises(ValueError):
+        tridiag.PartitionFactor(dl, d.cpu(), du)
+    with pytest.raises(ValueError):
+        tridiag.PartitionFactor(dl.cpu(), d.cpu(), du.cpu()).solve(b)
+    with pytest.raises(ValueError):
+        fac.solve(b[:, :-1].contiguous())
+    assert tridiag.tridiag_part64.launches == before
+
+
+@pytest.mark.cuda
+def test_border_solve_on_the_card_takes_the_kernel_and_meets_the_reference(
+        cuda):
+    """The series ladder at 10^5 resistors, 16 lanes of source values,
+    through ``border_solve`` (refine 4) on the card: every one of its six
+    solves through the partitioned kernel, no host sync and no PCR; the
+    answers' gaps from ``port_bench/reference/series_dc.py`` within 1e-6
+    (``check.dc_gaps``: voltages against the source value, the current
+    against the reference's), as the CPU's PCR route's are; the two
+    agree to 1e-8 of the source (the ladder's condition, ~N^2, sets the
+    solves' forward error)."""
+    from phy_engine_tpu_torch import trace
+    from phy_engine_tpu_torch.models.base import StampCtx
+    from phy_engine_tpu_torch.ops import tridiag
+    from port_bench import check
+    from port_bench.reference import series_dc
+    N = 10 ** 5
+    ir = workloads.ladder_ir(N)
+    one = {k: v[None] for k, v in analog.initial_params(ir, "cpu").items()}
+    st = {k: {s: a[None] for s, a in dd.items()}
+          for k, dd in analog.initial_state(ir, "cpu").items()}
+    ctx = StampCtx(mode="op", t=0.0, dt=0.0, env=workloads.default_env())
+    rows, cols, vals, Z, _ = analog.assemble_sparse(
+        ir, one, analog.initial_x(ir, "cpu")[None], st, ctx)
+    dl, d, du, e, z, rb = workloads.ladder_extract(
+        rows.numpy(), cols.numpy(), vals[0].numpy(), Z[0].numpy(),
+        ir.n_unknowns)
+    volts = np.linspace(0.5, 1.5, 16)
+    V = workloads.LADDER_V
+    out = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        zb = t(z)[None] * t(volts)[:, None]
+        before = trace.counters()
+        v, i = tridiag.border_solve(t(dl), t(d), t(du), zb, t(e),
+                                    t(rb * volts), refine=4)
+        out[str(dev)] = torch.cat([v, i[:, None]], 1).cpu().numpy()
+        after = trace.counters()
+    L = len(tridiag.part_sizes(N)) - 1
+    assert after["tridiag_part64.launches"] - \
+        before["tridiag_part64.launches"] == (2 * L + 1) * (1 + 6)
+    assert after.get("host_syncs", 0) == before.get("host_syncs", 0)
+    unit = series_dc.solve(N, workloads.LADDER_R)
+    for x in out.values():
+        gaps = check.dc_gaps(x, np.arange(N + 1), unit, V * volts, N)
+        assert gaps["v_gap_max"] <= 1e-6 and gaps["i_gap_max"] <= 1e-6, gaps
+    x = out[str(cuda)]
+    assert np.abs(x[:, :N] - out["cpu"][:, :N]).max() <= 1e-8 * V

@@ -239,3 +239,128 @@ def test_ladder_direct_exact_ramp_and_jax():
     vj = np.asarray(vj)[[0, N // 2, N - 1]]
     assert np.abs(r["v_sampled"] - vj).max() < 1e-9 * V
     assert abs(r["i_src"] - float(ij)) < 1e-9 * r["i_exp"]
+
+
+def _shared(n, seed, batch):
+    """``_system``'s T (n,), shared by the ``batch`` right sides b."""
+    dl, d, du, _b = _system(n, seed)
+    b = np.random.default_rng(seed + 1).standard_normal(batch + (n,))
+    return dl, d, du, b
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+@pytest.mark.parametrize("n", [1, 20, 31, 32, 33, 64, 65, 1000, 2049])
+def test_partition_twin_matches_dense(n, batch):
+    """The partitioned solve's plain twin (``PartitionFactor`` on CPU
+    tensors) against numpy's dense solve: n below one chunk, at and
+    around a chunk and the direct level's limit, not a multiple of a
+    chunk, and three levels (2049 -> 65 -> 3)."""
+    dl, d, du, b = _shared(n, n, batch)
+    fac = tt.PartitionFactor(_t(dl), _t(d), _t(du))
+    assert len(fac.levels) == len(tt.part_sizes(n)) - 1
+    x = fac.solve(_t(b)).numpy()
+    ref = np.linalg.solve(_dense(dl, d, du), b.reshape(-1, n).T).T
+    assert x.shape == b.shape
+    assert np.allclose(x, ref.reshape(b.shape), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("N", [64, 400, 5000])
+def test_partition_border_solve_matches_jax_and_dense(N):
+    """``border_solve_part`` with the twin's factor on the bordered ladder
+    against the JAX package's ``border_solve`` and a dense solve (the
+    tolerances of ``test_border_solve_on_the_bordered_ladder``), for one
+    right side and for three lanes of source values."""
+    dl, dd, du, e = _bordered_ladder(N)
+    z = np.zeros(N)
+    fac = tt.PartitionFactor(_t(dl), _t(dd), _t(du))
+    v, i = tt.border_solve_part(fac, _t(dl), _t(dd), _t(du), _t(z), _t(e),
+                                _t(3.0), refine=2)
+    vj, ij = jt.border_solve(*map(jnp.asarray, (dl, dd, du, z, e, 3.0)))
+    M = np.zeros((N + 1, N + 1))
+    M[:N, :N] = _dense(dl, dd, du)
+    M[:N, N] = e
+    M[N, :N] = e
+    ref = np.linalg.solve(M, np.concatenate([z, [3.0]]))
+    assert np.allclose(v.numpy(), ref[:N], rtol=1e-9, atol=1e-9)
+    assert np.isclose(float(i), ref[N], rtol=1e-9, atol=1e-12)
+    assert np.allclose(v.numpy(), np.asarray(vj), rtol=1e-9, atol=1e-9)
+    assert np.isclose(float(i), float(ij), rtol=1e-9, atol=1e-12)
+    volts = np.array([0.5, 1.0, 1.5])
+    zb = np.random.default_rng(N).standard_normal((3, N)) * 1e-3
+    vb, ib = tt.border_solve_part(fac, _t(dl), _t(dd), _t(du), _t(zb),
+                                  _t(e), _t(3.0 * volts), refine=2)
+    for k in range(3):
+        refk = np.linalg.solve(M, np.concatenate([zb[k], [3.0 * volts[k]]]))
+        assert np.allclose(vb[k].numpy(), refk[:N], rtol=1e-9, atol=1e-9)
+        assert np.isclose(float(ib[k]), refk[N], rtol=1e-9, atol=1e-12)
+
+
+def test_border_solve_on_the_cpu_keeps_pcr(monkeypatch):
+    """On CPU tensors ``border_solve`` takes PCR (six ``tridiag_solve``
+    calls at refine 4, no ``PartitionFactor``), with the answer it gave
+    before the partitioned route existed; no kernel launch is counted."""
+    dl, dd, du, e = _bordered_ladder(300)
+    z = np.random.default_rng(3).standard_normal((2, 300)) * 1e-3
+    args = (_t(dl), _t(dd), _t(du), _t(z), _t(e), _t([3.0, 1.5]))
+    calls = []
+    pcr = tt.tridiag_solve
+    monkeypatch.setattr(tt, "tridiag_solve",
+                        lambda *a: calls.append(1) or pcr(*a))
+    monkeypatch.setattr(tt, "PartitionFactor", None)
+    before = tt.tridiag_part64.launches
+    v, i = tt.border_solve(*args, refine=4)
+    assert len(calls) == 6
+    assert tt.tridiag_part64.launches == before
+    # the PCR route written out: t_e, then base(z) and four refinements
+    a, c = args[0], args[2]
+    t_e = pcr(a, args[1], c, args[4])
+    ete = (args[4] * t_e).sum(-1)
+
+    def base(zz, rb):
+        t_z = pcr(a, args[1], c, zz)
+        ii = ((args[4] * t_z).sum(-1) - rb) / ete
+        return t_z - t_e * ii[..., None], ii
+
+    vv, ii = base(args[3], args[5])
+    for _ in range(4):
+        r1 = args[3] - tt.tridiag_matvec(a, args[1], c, vv) \
+            - args[4] * ii[..., None]
+        dv, di = base(r1, args[5] - (args[4] * vv).sum(-1))
+        vv, ii = vv + dv, ii + di
+    assert torch.equal(v, vv) and torch.equal(i, ii)
+
+
+def test_partition_factor_on_the_cpu_counts_no_launch():
+    """The twin factors and solves CPU tensors of any shape it takes with
+    no launch counted; the route picks PCR for CPU inputs; 2-D or ragged
+    diagonals raise."""
+    dl, d, du, b = _shared(1000, 4, (2,))
+    before = tt.tridiag_part64.launches
+    fac = tt.PartitionFactor(_t(dl), _t(d), _t(du))
+    fac.solve(_t(b))
+    fac.solve(_t(b[0]))
+    assert tt.tridiag_part64.launches == before
+    assert not tt._part_route(_t(dl), _t(d), _t(du), _t(b), _t(b[0]))
+    with pytest.raises(ValueError):
+        tt.PartitionFactor(_t(dl)[None], _t(d)[None], _t(du)[None])
+    with pytest.raises(ValueError):
+        tt.PartitionFactor(_t(dl), _t(d)[:-1], _t(du))
+    with pytest.raises(ValueError):
+        fac.solve(_t(b)[:, :-1])
+
+
+def test_partition_route_residual_matches_tridiag_matvec():
+    """The partitioned route's residual z - T v - e i (slices, no scalar
+    written) against ``tridiag_matvec`` and numpy, for 1-D and 2-D v."""
+    dl, d, du, b = _shared(257, 9, (3,))
+    rng = np.random.default_rng(10)
+    e = rng.standard_normal(257)
+    for z, v, i in ((b, b[::-1].copy(), rng.standard_normal(3)),
+                    (b[0], b[1], rng.standard_normal(()))):
+        got = tt._residual(_t(dl), _t(d), _t(du), _t(z), _t(v), _t(e),
+                           _t(i)).numpy()
+        tv = tt.tridiag_matvec(_t(dl), _t(d), _t(du), _t(v)).numpy()
+        want = z - tv - e * np.asarray(i)[..., None]
+        assert np.allclose(got, want, rtol=1e-13, atol=1e-13)
+        dense = z - (_dense(dl, d, du) @ v.T).T - e * np.asarray(i)[..., None]
+        assert np.allclose(got, dense, rtol=1e-12, atol=1e-12)

@@ -60,7 +60,6 @@ Everything a synthesized netlist produces qualifies.
 
 from __future__ import annotations
 
-import ctypes
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -68,6 +67,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops._build import launcher
+from ..trace import kernel_wrapper
 from .ir import DigitalIR
 
 CHUNK = 128
@@ -805,6 +806,7 @@ def _check(plan, state0, FV, FU):
         raise ValueError(f"unsupported device {state0.device}")
 
 
+@kernel_wrapper
 def run_turbo(plan: TurboPlan, state0, FV, FU, watch=None,
               _force_global: bool = False):
     """Run T ticks of B independent instances of the design.
@@ -838,12 +840,7 @@ def run_turbo(plan: TurboPlan, state0, FV, FU, watch=None,
     return hv, hu
 
 
-run_turbo.launches = 0
-
-
 def _launch(plan, state0, FVp, FUp, w, force_global):
-    from ..ops._build import load_library
-    lib = load_library()
     dev = state0.device
     B, T = FVp.shape[0], FVp.shape[1]
     width = plan.K if w is None else len(w)
@@ -851,32 +848,20 @@ def _launch(plan, state0, FVp, FUp, w, force_global):
     hu = torch.empty_like(hv)
     sc = plan.schedule
     words = state_words(plan)
-    with torch.cuda.device(dev):
-        limit = lib.pe_turbo_smem_limit()
-        if limit < 0:
-            raise RuntimeError(f"pe_turbo_smem_limit failed: CUDA error "
-                               f"{-limit}")
-        in_global = force_global or lib.pe_turbo_shared_bytes(
-            words, 0) > limit
+    with launcher(dev) as launch:
+        limit = launch.query("pe_turbo_smem_limit")
+        in_global = force_global or launch.query(
+            "pe_turbo_shared_bytes", words, 0) > limit
         if in_global:
             scratch = torch.empty((B, words), dtype=torch.int32, device=dev)
         else:
             scratch = hv                  # unused by the shared placement
         tabs = plan.tables(dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        wp = 0 if w is None else w.data_ptr()
-        err = lib.pe_turbo_run(
-            state0.data_ptr(), FVp.data_ptr(), FUp.data_ptr(),
-            tabs["f_slot"].data_ptr(), tabs["cone"].data_ptr(),
-            tabs["full"].data_ptr(), tabs["ff_rec"].data_ptr(),
-            tabs["ff_seg"].data_ptr(), wp,
-            hv.data_ptr(), hu.data_ptr(), scratch.data_ptr(),
-            B, T, plan.K, words, plan.nf_pad,
-            len(tabs["cone"]) // THREADS, len(tabs["full"]) // THREADS,
-            len(sc.ff_seg), width, plan.trash,
-            int(sc.cone_zero) | int(sc.full_zero) << 1,
-            1 if in_global else 0, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"pe_turbo_run failed to launch: CUDA error {err} "
-                           f"({lib.pe_cuda_error_string(err).decode()})")
+        launch("pe_turbo_run", state0, FVp, FUp, tabs["f_slot"],
+               tabs["cone"], tabs["full"], tabs["ff_rec"], tabs["ff_seg"], w,
+               hv, hu, scratch, B, T, plan.K, words, plan.nf_pad,
+               len(tabs["cone"]) // THREADS, len(tabs["full"]) // THREADS,
+               len(sc.ff_seg), width, plan.trash,
+               int(sc.cone_zero) | int(sc.full_zero) << 1,
+               1 if in_global else 0)
     return hv, hu

@@ -39,9 +39,10 @@ a lane; the kernel takes n up to ``MAX_N`` and a 16-byte aligned
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from ..trace import kernel_wrapper
+from ._build import launcher
 
 NB = 128          # n must be a multiple of this (the reference's panel)
 MB = 32           # the kernel's micro-panel width (csrc/gj.cu)
@@ -173,20 +174,6 @@ def _check(A32, b32=None):
         raise ValueError(f"unsupported device {A32.device}")
 
 
-def _launch(fn, *tensors_and_ints):
-    from ._build import load_library
-    lib = load_library()
-    dev = tensors_and_ints[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        args = [t.data_ptr() if isinstance(t, torch.Tensor) else t
-                for t in tensors_and_ints]
-        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn} failed to launch: CUDA error {err} "
-                           f"({lib.pe_cuda_error_string(err).decode()})")
-
-
 def _scratch(A32, rhs_cols: int):
     """The kernel's scratch: W (B, n, n), G (B, n, MB), R (B, MB, n +
     rhs_cols) (the solve's b column and padding to 16 bytes), krow and
@@ -204,6 +191,7 @@ def _scratch(A32, rhs_cols: int):
             torch.empty((B, n), **i32))
 
 
+@kernel_wrapper
 def gj_solve32(A32, b32):
     """f32 batched solve A x = b; A (B, n, n), b (B, n); n % 128 == 0."""
     _check(A32, b32)
@@ -213,15 +201,14 @@ def gj_solve32(A32, b32):
     W, G, R, krow, pivd, rowof = _scratch(A32, 4)
     Wb = torch.empty((B, n), dtype=torch.float32, device=A32.device)
     x = torch.empty((B, n), dtype=torch.float32, device=A32.device)
-    _launch("pe_gj_solve32", A32, b32, W, Wb, G, R, krow, pivd, rowof, x,
-            B, n)
+    with launcher(A32.device) as launch:
+        launch("pe_gj_solve32", A32, b32, W, Wb, G, R, krow, pivd, rowof, x,
+               B, n)
     gj_solve32.launches += 1
     return x
 
 
-gj_solve32.launches = 0
-
-
+@kernel_wrapper
 def gj_inverse32(A32):
     """Batched f32 inverse; A (B, n, n), n % 128 == 0.  Singular lanes
     yield NaN/Inf entries (callers residual-check)."""
@@ -231,12 +218,10 @@ def gj_inverse32(A32):
     B, n, _ = A32.shape
     W, G, R, krow, pivd, rowof = _scratch(A32, 0)
     X = torch.empty((B, n, n), dtype=torch.float32, device=A32.device)
-    _launch("pe_gj_inverse32", A32, W, G, R, krow, pivd, rowof, X, B, n)
+    with launcher(A32.device) as launch:
+        launch("pe_gj_inverse32", A32, W, G, R, krow, pivd, rowof, X, B, n)
     gj_inverse32.launches += 1
     return X
-
-
-gj_inverse32.launches = 0
 
 
 def pow2_recip_floor(x):

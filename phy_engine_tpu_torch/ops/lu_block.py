@@ -42,7 +42,8 @@ from __future__ import annotations
 
 import torch
 
-from .gj import _launch
+from ..trace import kernel_wrapper
+from ._build import launcher
 
 NB_BLOCK = 32     # diagonal block = pivot scope; the kernel's only nb
 SUPER = 128       # the kernel's widest super-panel: rows of its U^T and R
@@ -111,6 +112,7 @@ def _check(A32, nb: int):
         raise ValueError(f"unsupported device {A32.device}")
 
 
+@kernel_wrapper
 def lu_block_inverse32(A32, nb: int = NB_BLOCK):
     """Batched f32 inverse by blocked Gauss-Jordan; A (B, n, n), n % nb
     == 0 (nb = 32 on the card).  A singular leading diagonal block makes
@@ -127,17 +129,10 @@ def lu_block_inverse32(A32, nb: int = NB_BLOCK):
     X = torch.empty((B, n, n), **f32)
     Ut = torch.empty((B, SUPER, n), **f32)      # U^T of each super-panel
     R = torch.empty((2, B, SUPER, n), **f32)    # its rows before it
-    # the panel's global scratch where it does not fit on chip (n > 6144)
-    from ._build import load_library
-    with torch.cuda.device(A32.device):
-        pf = load_library().pe_lu_block_panel_floats(B, n)
-    if pf < 0:
-        raise RuntimeError(f"pe_lu_block_panel_floats failed: CUDA error "
-                           f"{-pf}")
-    P = torch.empty(pf, **f32) if pf else None
-    _launch("pe_lu_block_inverse32", A32, X, Ut, R, P, B, n)
+    with launcher(A32.device) as launch:
+        # the panel's global scratch where it does not fit on chip (n > 6144)
+        pf = launch.query("pe_lu_block_panel_floats", B, n)
+        P = torch.empty(pf, **f32) if pf else None
+        launch("pe_lu_block_inverse32", A32, X, Ut, R, P, B, n)
     lu_block_inverse32.launches += 1
     return X
-
-
-lu_block_inverse32.launches = 0

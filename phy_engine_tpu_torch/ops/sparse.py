@@ -53,7 +53,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..trace import count, host_read, span, spanned, sync_site
+from ..trace import (count, host_read, kernel_wrapper, span, spanned,
+                     sync_site)
+from ._build import launcher
 from .tridiag import PCRFactor
 
 CHECK_EVERY = 8      # iterations between host reads of the stop condition
@@ -269,6 +271,7 @@ class COOProduct:
         return coo_spmm(self.layout, self.row_vals, x)
 
 
+@kernel_wrapper
 def coo_spmm(layout: COOLayout, row_vals, x):
     """y = A x on the card by ``csrc/coo_spmm.cu``: row_vals (nnz_rows,)
     or (B, nnz_rows) in ``layout``'s row order, x (n,) or (B, n), both
@@ -277,7 +280,6 @@ def coo_spmm(layout: COOLayout, row_vals, x):
     wide agree with the plain twin bit for bit, wider ones to rounding; a
     repeat run is bit-identical.  ``coo_spmm.launches`` counts kernel
     launches."""
-    from .gj import _launch
     n = layout.n
     args = (("row_vals", row_vals), ("x", x))
     for name, t in args:
@@ -309,14 +311,14 @@ def coo_spmm(layout: COOLayout, row_vals, x):
                     dtype=x.dtype, device=x.device)
     rowptr, cols, wide, _perm = layout.csr(x.device)
     n_wide = wide.numel()
-    _launch(_SPMM[x.dtype], rowptr, cols, wide if n_wide else None,
-            row_vals, stride(row_vals), x, stride(x), y, B, n,
-            ROW_THREAD_MAX, n_wide)
+    with launcher(x.device) as launch:
+        launch(_SPMM[x.dtype], rowptr, cols, wide if n_wide else None,
+               row_vals, stride(row_vals), x, stride(x), y, B, n,
+               ROW_THREAD_MAX, n_wide)
     coo_spmm.launches += 1 + (n_wide > 0)
     return y
 
 
-coo_spmm.launches = 0
 _SPMM = {torch.float64: "pe_coo_spmm64", torch.float32: "pe_coo_spmm32"}
 
 
@@ -659,16 +661,14 @@ def _krylov(mv, precond, x, r0, max_iter, stop, tiny, done=None):
 
 @spanned("pe.bicgstab")
 def bicgstab(rows, cols, vals, b, n: int, x0=None, tol: float = 1e-10,
-             max_iter: int = 400, diag_floor: float = 1e-9,
-             layout: COOLayout = None):
+             max_iter: int = 400, layout: COOLayout = None):
     """Preconditioned BiCGStab on a COO system, in b's dtype: Jacobi
     first, escalating to the chain preconditioner.
 
     b (B, n) or (n,); vals (nnz,) or (B, nnz); x0 like b.  Returns (x,
     converged, iterations), per lane.  ``layout``: a prebuilt
     :class:`COOLayout` of (rows, cols) (the ``Circuit`` route caches one
-    per pattern).  ``diag_floor`` is kept for the JAX signature (unused
-    there too).
+    per pattern).
 
     A pattern runs Jacobi, as the JAX package does, until a solve of it
     leaves a lane unconverged.  That solve then runs again, with

@@ -3,21 +3,20 @@
 
 The reference's largest benchmark netlists are series resistor ladders
 (benchmark/0001.models/1000000xR.cpp, 100000000xR.cpp): the MNA is
-tridiagonal plus one voltage-source border row / column.  Two solvers:
+tridiagonal plus one voltage-source border row / column.  Three solvers:
 
 * ``tridiag_solve`` — parallel cyclic reduction (PCR): ceil(log2 N)
   rounds of shifts and fused multiply-adds, no sequential dependence;
-  ``border_solve`` eliminates the border by a Schur complement (two PCR
-  solves) with residual refinement passes; ``PCRFactor`` keeps PCR's
-  right-side-independent rounds for repeated solves with one T (the
-  sparse route's chain preconditioner, ``ops/sparse.py``).
+  ``PCRFactor`` keeps PCR's right-side-independent rounds
+  (``_pcr_rounds``, which both share) for repeated solves with one T
+  (the sparse route's chain preconditioner, ``ops/sparse.py``).
 * ``PartitionFactor`` — a partitioned solve for one T shared by every
   lane: Thomas within chunks of ``PART_M`` rows, the chunks' separators
   a smaller tridiagonal system of the same kind, recursively.  On a CUDA
   tensor it is the hand-written kernel of ``csrc/tridiag_part.cu``
   (``tridiag_part64``); its plain twin ``part_factor_plain`` /
-  ``part_solve_plain`` serves CPU tensors.  ``border_solve`` takes it for
-  CUDA float64 inputs with T and the border e 1-D.
+  ``part_solve_plain`` serves CPU tensors.  ``border_solve`` solves T
+  through it on every device.
 * ``SpikeFactor`` — chunked (SPIKE) elimination for N in the 1e8 range:
   C chunks of M rows, each solved by Thomas, whose pivots come from a
   sequential recurrence (on the device, ``_thomas_factor``, or in true
@@ -26,6 +25,10 @@ tridiagonal plus one voltage-source border row / column.  Two solvers:
   (``_linrec_scan``); the 2C x 2C reduced interface system is banded and
   LU-factored once on the host (LAPACK ``dgbtrf`` / ``dgbtrs`` through
   scipy).
+
+Every bordered solve (``border_solve``, ``border_solve_part``,
+``spike_border_solve`` and its unit-vector form) is one Schur complement
+with residual refinement passes, ``_bordered``, over its factor's solve.
 
 Everything else is torch ops in the input dtype (float64 for the
 ladders) over arbitrary leading batch dimensions (the JAX package has no
@@ -38,14 +41,13 @@ bit.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..trace import span, spanned, sync_site
+from ..trace import kernel_wrapper, span, spanned
+from ._build import launcher
 
 
 def _shift_down(a, s, fill):
@@ -64,14 +66,32 @@ def _shift_up(a, s, fill):
     return torch.cat([a[..., s:], pad], dim=-1)
 
 
-def _edges_zeroed(dl, du):
-    a = dl.clone()
-    with sync_site("tridiag_edge"):      # a scalar's copy to the device
-        a[..., 0] = 0.0
-    c = du.clone()
-    with sync_site("tridiag_edge"):
-        c[..., -1] = 0.0
-    return a, c
+def _corners_dropped(dl, du):
+    """dl and du with ``dl[..., 0]`` and ``du[..., -1]`` zeroed by slices:
+    no scalar is written into a tensor, so nothing waits for the device.
+    dl and du share one shape (..., N)."""
+    zero = dl.new_zeros(dl.shape[:-1] + (1,))
+    return (torch.cat([zero, dl[..., 1:]], dim=-1),
+            torch.cat([du[..., :-1], zero], dim=-1))
+
+
+def _pcr_rounds(dl, d, du):
+    """PCR's a / c / d recursion, which does not depend on the right
+    side, one round at a time: yields (s, alpha, gamma, d) for s = 1, 2,
+    4, ... below N, d the diagonal after the round."""
+    n = d.shape[-1]
+    a, c = _corners_dropped(dl, du)
+    s = 1
+    while s < n:
+        alpha = -a / _shift_down(d, s, 1.0)
+        gamma = -c / _shift_up(d, s, 1.0)
+        a_new = alpha * _shift_down(a, s, 0.0)
+        c_new = gamma * _shift_up(c, s, 0.0)
+        d = (d + alpha * _shift_down(c, s, 0.0)
+             + gamma * _shift_up(a, s, 0.0))
+        a, c = a_new, c_new
+        yield s, alpha, gamma, d
+        s *= 2
 
 
 @spanned("pe.pcr")
@@ -80,55 +100,30 @@ def tridiag_solve(dl, d, du, b):
 
     ``dl[..., 0]`` and ``du[..., -1]`` are ignored.  All arrays share the
     shape (..., N) (a leading dimension of 1 broadcasts); the solve
-    vectorizes over the leading axes.  PCR is stable for the diagonally
-    dominant systems MNA produces; a singular system yields inf / nan."""
-    n = d.shape[-1]
-    a, c = _edges_zeroed(dl, du)
-    x = b
-    s = 1
-    while s < n:
-        alpha = -a / _shift_down(d, s, 1.0)
-        gamma = -c / _shift_up(d, s, 1.0)
-        a_new = alpha * _shift_down(a, s, 0.0)
-        c_new = gamma * _shift_up(c, s, 0.0)
-        d_new = (d + alpha * _shift_down(c, s, 0.0)
-                 + gamma * _shift_up(a, s, 0.0))
+    vectorizes over the leading axes, holding one round at a time.  PCR
+    is stable for the diagonally dominant systems MNA produces; a
+    singular system yields inf / nan."""
+    x, dd = b, d
+    for s, alpha, gamma, dd in _pcr_rounds(dl, d, du):
         x = (x + alpha * _shift_down(x, s, 0.0)
              + gamma * _shift_up(x, s, 0.0))
-        a, c, d = a_new, c_new, d_new
-        s *= 2
-    return x / d
+    return x / dd
 
 
 class PCRFactor:
     """``tridiag_solve`` for one T and many right sides: the a / c / d
-    recursion, which does not depend on the right side, runs once here,
-    keeping each round's (alpha, gamma) and the final diagonal; ``solve``
-    runs only the right side's recursion.
+    recursion runs once here, keeping each round's (alpha, gamma) and the
+    final diagonal; ``solve`` runs only the right side's recursion.
 
     dl, d, du share one shape (..., N); ``dl[..., 0]`` and ``du[..., -1]``
-    are ignored (dropped by a slice, with no scalar written into a tensor,
-    so neither the factor nor a solve waits for the device).  Holds
-    2 ceil(log2 N) arrays of T's shape."""
+    are ignored (dropped by slices: neither the factor nor a solve waits
+    for the device).  Holds 2 ceil(log2 N) arrays of T's shape."""
 
     def __init__(self, dl, d, du):
-        n = d.shape[-1]
-        zero = d.new_zeros(d.shape[:-1] + (1,))
-        a = torch.cat([zero, dl[..., 1:]], dim=-1)
-        c = torch.cat([du[..., :-1], zero], dim=-1)
-        self.rounds = []
-        s = 1
-        while s < n:
-            alpha = -a / _shift_down(d, s, 1.0)
-            gamma = -c / _shift_up(d, s, 1.0)
-            a_new = alpha * _shift_down(a, s, 0.0)
-            c_new = gamma * _shift_up(c, s, 0.0)
-            d = (d + alpha * _shift_down(c, s, 0.0)
-                 + gamma * _shift_up(a, s, 0.0))
-            a, c = a_new, c_new
+        self.rounds, self.d = [], d
+        for s, alpha, gamma, dd in _pcr_rounds(dl, d, du):
             self.rounds.append((s, alpha, gamma))
-            s *= 2
-        self.d = d
+            self.d = dd
 
     def solve(self, b):
         """T^-1 b for b (..., N) broadcasting against the factor's shape
@@ -150,7 +145,7 @@ class PCRFactor:
 
 def tridiag_matvec(dl, d, du, x):
     """y = T x for tridiagonal T (same layout as tridiag_solve)."""
-    a, c = _edges_zeroed(dl, du)
+    a, c = _corners_dropped(dl, du)
     return d * x + a * _shift_down(x, 1, 0.0) + c * _shift_up(x, 1, 0.0)
 
 
@@ -501,6 +496,31 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def _bordered(solve, residual, t_e, ete, z, e, rhs_b, refine):
+    """The Schur complement of [T e; e^T 0] [v; i] = [z; rhs_b] and its
+    ``refine`` residual refinement passes, for every bordered solve:
+    ``solve(b)`` is T^-1 b, ``residual(v, i)`` z - T v - e i, t_e = T^-1
+    e and ete = e^T t_e.  e is a vector or, as an int, the index of a
+    unit vector, so that no N-length e need exist."""
+    if isinstance(e, torch.Tensor):
+        dot = lambda x: x @ e
+    else:
+        dot = lambda x: x[..., e]
+
+    def base(zz, rb):
+        t_z = solve(zz)
+        ii = (dot(t_z) - rb) / ete
+        return torch.addcmul(t_z, t_e, ii[..., None], value=-1.0), ii
+
+    v, i = base(z, rhs_b)
+    for _ in range(refine):
+        with span("pe.refine"):
+            dv, di = base(residual(v, i), rhs_b - dot(v))
+            v = v + dv
+            i = i + di
+    return v, i
+
+
 def spike_border_solve_factor(dl, d, du, e, chunks: int = 2048,
                               nbatch: int = 1, factor_host: bool = False):
     """A SpikeFactor for T plus the Schur pieces for one voltage-source
@@ -509,7 +529,7 @@ def spike_border_solve_factor(dl, d, du, e, chunks: int = 2048,
     fac = SpikeFactor(dl, d, du, chunks=chunks, nbatch=nbatch,
                       factor_host=factor_host)
     t_e = fac.solve(e)
-    return fac, t_e, (e * t_e).sum(-1)
+    return fac, t_e, t_e @ e
 
 
 def spike_border_solve_unit_factor(dl, d, du, idx: int = 0,
@@ -532,38 +552,23 @@ def spike_border_solve_unit(fac, t_e, ete, z, rhs_b, idx: int = 0,
     """Bordered solve with e = the unit vector at ``idx`` (see
     spike_border_solve)."""
 
-    def base(zz, rb):
-        t_z = fac.solve(zz)
-        ii = (t_z[idx] - rb) / ete
-        return t_z - t_e * ii, ii
+    def residual(v, i):
+        r = z - fac.matvec(v)
+        r[idx] -= i
+        return r
 
-    v, i = base(z, rhs_b)
-    for _ in range(refine):
-        r1 = z - fac.matvec(v)
-        r1[idx] -= i
-        dv, di = base(r1, rhs_b - v[idx])
-        v = v + dv
-        i = i + di
-    return v, i
+    return _bordered(fac.solve, residual, t_e, ete, z, int(idx), rhs_b,
+                     refine)
 
 
 def spike_border_solve(fac, t_e, ete, z, e, rhs_b, refine: int = 2):
     """Bordered solve through a prebuilt SpikeFactor (``border_solve``'s
     semantics); the ``refine`` passes use the factor's chunked matvec."""
 
-    def base(zz, rb):
-        t_z = fac.solve(zz)
-        ii = ((e * t_z).sum(-1) - rb) / ete
-        return t_z - t_e * ii[..., None], ii
+    def residual(v, i):
+        return (z - fac.matvec(v)).addcmul_(e, i[..., None], value=-1.0)
 
-    v, i = base(z, rhs_b)
-    for _ in range(refine):
-        r1 = z - fac.matvec(v) - e * i[..., None]
-        r2 = rhs_b - (e * v).sum(-1)
-        dv, di = base(r1, r2)
-        v = v + dv
-        i = i + di
-    return v, i
+    return _bordered(fac.solve, residual, t_e, ete, z, e, rhs_b, refine)
 
 
 # ---------------------------------------------------------------------------
@@ -743,29 +748,6 @@ class PartitionFactor:
         return tridiag_part64(self, b)
 
 
-@contextlib.contextmanager
-def _launcher(device):
-    """``launch(fn, *args)`` for a run of the kernels' launches on
-    ``device``'s current stream, the device made current and the stream
-    taken once for the run (per launch, as ``gj._launch`` does, they cost
-    ~18 us of the host's time a launch, which the device waits out where
-    the launches are small: 0.3 ms of a ladder sweep's 6.6, measured on an
-    H100).  Each launch raises on a CUDA error."""
-    from ._build import load_library
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-        def launch(fn, *args):
-            err = getattr(lib, fn)(*[a.data_ptr() if torch.is_tensor(a)
-                                     else a for a in args], stream)
-            if err != 0:
-                raise RuntimeError(
-                    f"{fn} failed to launch: CUDA error {err} "
-                    f"({lib.pe_cuda_error_string(err).decode()})")
-        yield launch
-
-
 def _part_b_check(fac, b):
     """b (n,) or (B, n), B >= 1, for a factor of n rows."""
     if not isinstance(b, torch.Tensor):
@@ -802,7 +784,7 @@ def _part_factor_card(ts):
         raise ValueError(f"n = {a.shape[0]}: the kernel indexes rows in int32")
     levels = []
     sizes = part_sizes(a.shape[0])
-    with _launcher(a.device) as launch:
+    with launcher(a.device) as launch:
         for n, C in zip(sizes, sizes[1:]):
             buf = a.new_empty((3 * _PI + 13, C))
             w, ip, t = buf[:_PI], buf[_PI:2 * _PI], buf[2 * _PI:3 * _PI]
@@ -819,6 +801,7 @@ def _part_factor_card(ts):
     return levels, PartDirect(n, w, ip, t)
 
 
+@kernel_wrapper
 def tridiag_part64(fac: PartitionFactor, b):
     """x = T^-1 b on the card by ``csrc/tridiag_part.cu`` through the
     card's factor ``fac``: b (n,) or (B, n) float64, contiguous, on the
@@ -834,7 +817,7 @@ def tridiag_part64(fac: PartitionFactor, b):
     B = 1 if b.dim() == 1 else b.shape[0]
     ps, qs = [b], [None]
     d = fac.direct
-    with _launcher(b.device) as launch:
+    with launcher(b.device) as launch:
         for lev in fac.levels:
             p2, q2 = b.new_empty((2, B, lev.edge.shape[1]))
             launch("pe_tridiag_part_reduce64", ps[-1], qs[-1], lev.n, B,
@@ -854,20 +837,6 @@ def tridiag_part64(fac: PartitionFactor, b):
     return x
 
 
-tridiag_part64.launches = 0
-
-
-def _part_route(dl, d, du, z, e) -> bool:
-    """``border_solve``'s choice, by what its inputs are: the partitioned
-    kernel for a lane-shared T and border (dl, d, du, e 1-D) with every
-    input float64 on a CUDA device and z (N,) or (B, N); PCR otherwise."""
-    ts = (dl, d, du, z, e)
-    return (all(isinstance(v, torch.Tensor) and v.device.type == "cuda"
-                and v.dtype == torch.float64 for v in ts)
-            and dl.dim() == d.dim() == du.dim() == e.dim() == 1
-            and z.dim() in (1, 2))
-
-
 def _residual(dl, d, du, z, v, e, i):
     """z - T v - e i in four passes, T's corners dl[0] and du[-1] left out
     by slices: no scalar is written into a tensor, so nothing waits for
@@ -882,23 +851,12 @@ def border_solve_part(fac: PartitionFactor, dl, d, du, z, e, rhs_b,
                       refine: int = 2):
     """``border_solve``'s Schur complement and refinement for a 1-D border
     e, with T's solves through the partitioned factor ``fac`` of (dl, d,
-    du): the same 2 + refine solves; the residual by ``_residual``, e's
-    dot products matrix-vector products; no host sync."""
+    du): 2 + refine solves; the residual by ``_residual``, e's dot
+    products matrix-vector products; no host sync."""
     t_e = fac.solve(e.contiguous())
-    ete = t_e @ e
-
-    def base(zz, rb):
-        t_z = fac.solve(zz.contiguous())
-        ii = (t_z @ e - rb) / ete
-        return torch.addcmul(t_z, t_e, ii[..., None], value=-1.0), ii
-
-    v, i = base(z, rhs_b)
-    for _ in range(refine):
-        with span("pe.refine"):
-            dv, di = base(_residual(dl, d, du, z, v, e, i), rhs_b - v @ e)
-            v = v + dv
-            i = i + di
-    return v, i
+    return _bordered(lambda b: fac.solve(b.contiguous()),
+                     lambda v, i: _residual(dl, d, du, z, v, e, i),
+                     t_e, t_e @ e, z, e, rhs_b, refine)
 
 
 @spanned("pe.border_solve")
@@ -909,27 +867,13 @@ def border_solve(dl, d, du, z, e, rhs_b, refine: int = 2):
     v = T^-1 (z - e i), then ``refine`` residual refinement passes
     (ladder Laplacians reach condition ~N^2).  Returns (v, i).
 
-    For float64 inputs on a CUDA device with T and e 1-D (shared by every
-    lane) and z (N,) or (B, N), T's solves are the partitioned kernel's
-    (``border_solve_part`` over one ``PartitionFactor``); otherwise, and
-    on the CPU, they are PCR (``tridiag_solve``)."""
-    if _part_route(dl, d, du, z, e):
-        return border_solve_part(PartitionFactor(dl, d, du), dl, d, du, z, e,
-                                 rhs_b, refine)
-    t_e = tridiag_solve(dl, d, du, e)
-    ete = (e * t_e).sum(-1)
-
-    def base(zz, rb):
-        t_z = tridiag_solve(dl, d, du, zz)
-        ii = ((e * t_z).sum(-1) - rb) / ete
-        return t_z - t_e * ii[..., None], ii
-
-    v, i = base(z, rhs_b)
-    for _ in range(refine):
-        with span("pe.refine"):
-            r1 = z - tridiag_matvec(dl, d, du, v) - e * i[..., None]
-            r2 = rhs_b - (e * v).sum(-1)
-            dv, di = base(r1, r2)
-            v = v + dv
-            i = i + di
-    return v, i
+    T (dl, d, du) and e are (N,), shared by every lane; z is (N,) or (B,
+    N).  T's solves are one ``PartitionFactor`` (``border_solve_part``):
+    the plain twin on CPU tensors, the kernel on CUDA float64 ones; it
+    raises on anything else (``ValueError`` for a 2-D T, ``TypeError``
+    for CUDA float32).  The JAX package's ``border_solve`` also takes a
+    batched T."""
+    if not isinstance(e, torch.Tensor) or e.dim() != 1:
+        raise ValueError("e must be a 1-D tensor")
+    return border_solve_part(PartitionFactor(dl, d, du), dl, d, du, z, e,
+                             rhs_b, refine)

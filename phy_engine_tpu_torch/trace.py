@@ -9,10 +9,12 @@
   when someone profiles; there is no switch.
 * ``count(name, n)`` adds to a host-side integer counter (always on; it
   never reads a tensor).  ``counters()`` is a snapshot of every counter,
-  together with the launch counters of the six hand-written kernels'
+  together with the launch counters of the hand-written kernels'
   wrappers (``gj_solve32``, ``gj_inverse32``, ``lu_block_inverse32``,
   ``run_turbo``, ``coo_spmm``, ``tridiag_part64``), which stay attributes
-  of their wrappers.
+  of their wrappers: each wrapper registers itself with
+  ``@kernel_wrapper`` when its module is imported, so this module
+  imports none of them.
 * ``host_read(t, site)`` is an explicit read of the device (what
   ``t.tolist()``, ``bool(t)`` or ``t.item()`` return) inside the span
   ``pe.sync.<site>``, counted in ``host_syncs``; ``sync_site(site)`` is
@@ -26,10 +28,9 @@ Spans at the layer boundaries (nested as the host's calls):
 ``pe.bicgstab.burst`` > ``pe.coo_matvec``, ``pe.chain_apply``,
 ``pe.sync.*``; ``pe.bicgstab`` > ``pe.chain_factor``,
 ``pe.bicgstab.escalate`` (the chain preconditioner's pass after Jacobi
-failed); ``pe.border_solve`` > ``pe.refine`` > ``pe.pcr`` (PCR's route)
-or ``pe.tridiag_part`` (the partitioned kernel's: its factor and each
-solve).  Counters:
-``host_syncs``; ``bicgstab.iterations_launched`` (iterations that every
+failed); ``pe.border_solve`` > ``pe.tridiag_part`` (the partitioned
+solve's factor and first two solves), ``pe.refine`` > ``pe.tridiag_part``;
+``pe.pcr`` (``tridiag_solve``).  Counters: ``host_syncs``; ``bicgstab.iterations_launched`` (iterations that every
 lane of a BiCGStab call ran on the device, stopped lanes included);
 ``bicgstab.escalations`` (Jacobi solves that failed and ran again with
 the chain preconditioner); ``chain.factors``, ``chain.applies``.
@@ -47,6 +48,7 @@ import torch
 _NULL = contextlib.nullcontext()
 _COUNTS: Counter = Counter()
 _LOCK = threading.Lock()
+_KERNELS: list = []
 _profiling = torch._C._autograd._profiler_enabled
 
 
@@ -74,17 +76,20 @@ def count(name: str, n: int = 1) -> None:
         _COUNTS[name] += n
 
 
+def kernel_wrapper(fn):
+    """Decorator: ``fn`` is a hand-written kernel's wrapper, which adds
+    its launches to ``fn.launches`` (0 here); ``counters()`` reports it."""
+    fn.launches = 0
+    _KERNELS.append(fn)
+    return fn
+
+
 def counters() -> dict:
-    """{name: count} of every counter, and the kernels' launches."""
-    from .digital.turbo import run_turbo
-    from .ops.gj import gj_inverse32, gj_solve32
-    from .ops.lu_block import lu_block_inverse32
-    from .ops.sparse import coo_spmm
-    from .ops.tridiag import tridiag_part64
+    """{name: count} of every counter, and the registered wrappers'
+    launches as ``<wrapper>.launches``."""
     with _LOCK:
         out = dict(_COUNTS)
-    for fn in (gj_solve32, gj_inverse32, lu_block_inverse32, run_turbo,
-               coo_spmm, tridiag_part64):
+    for fn in _KERNELS:
         out[f"{fn.__name__}.launches"] = fn.launches
     return out
 

@@ -844,9 +844,9 @@ def ladder_dc(n_res: int = 10 ** 6, refine: int = 4, solves: int = 5,
     build the ``n_res``-resistor ladder's netlist and IR, assemble its COO
     system on ``device`` (``assemble_sparse``) and fetch it, extract the
     tridiagonal core and the source's border on the host, then solve by
-    ``ops.tridiag.border_solve`` (PCR + Schur, ``refine`` passes): one
-    warm-up solve, then ``solves`` timed ones with varied right sides
-    (:213-223).  Returns the timings, the solution and the exact check's
+    ``ops.tridiag.border_solve`` (partitioned solves + Schur, ``refine``
+    passes): one warm-up solve, then ``solves`` timed ones with varied
+    right sides (:213-223).  Returns the timings, the solution and the exact check's
     numbers: v (host) and i_src of the last solve, whose source voltage
     is V times rhs_scale, max_ramp_err, i_err (|i + V/(N R)|) and the
     bench's native-f64 tol (1e-6, :237); ``again`` reruns the last solve

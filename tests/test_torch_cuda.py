@@ -1239,13 +1239,14 @@ def test_tridiag_part_refuses_what_it_does_not_take(cuda):
 def test_border_solve_on_the_card_takes_the_kernel_and_meets_the_reference(
         cuda):
     """The series ladder at 10^5 resistors, 16 lanes of source values,
-    through ``border_solve`` (refine 4) on the card: every one of its six
-    solves through the partitioned kernel, no host sync and no PCR; the
-    answers' gaps from ``port_bench/reference/series_dc.py`` within 1e-6
-    (``check.dc_gaps``: voltages against the source value, the current
-    against the reference's), as the CPU's PCR route's are; the two
-    agree to 1e-8 of the source (the ladder's condition, ~N^2, sets the
-    solves' forward error)."""
+    through ``border_solve`` (refine 4) on the card: the factor and every
+    one of its six solves through the partitioned kernel, no host sync;
+    the answers' gaps from ``port_bench/reference/series_dc.py`` within
+    1e-6 (``check.dc_gaps``: voltages against the source value, the
+    current against the reference's), as the CPU's are (the kernel's
+    plain twin, the same algorithm); the two agree to 1e-8 of the source
+    (the dot products and the residual round differently on the two
+    devices, and the ladder's condition, ~N^2, amplifies it)."""
     from phy_engine_tpu_torch import trace
     from phy_engine_tpu_torch.models.base import StampCtx
     from phy_engine_tpu_torch.ops import tridiag

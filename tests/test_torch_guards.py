@@ -4,6 +4,7 @@ back a stand-in, and ``chip_smoke.py`` fails loudly — with no success
 line — where there is no card or no repo."""
 
 import ast
+import contextlib
 import os
 import re
 import shutil
@@ -102,6 +103,52 @@ def test_kernel_loader_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _build.load_library()
+
+
+def test_kernel_launcher_passes_pointers_and_the_stream_and_raises(
+        monkeypatch):
+    """``_build.launcher`` over a stand-in library and device: a tensor
+    goes as its data pointer, the device's stream, taken once, ends every
+    launch; a non-zero return raises with the library's error string; a
+    query returns its count and raises on a negative one."""
+    calls, streams = [], []
+
+    class Lib:
+        def pe_ok(self, *args):
+            calls.append(args)
+            return 0
+
+        def pe_bad(self, *args):
+            return 700
+
+        def pe_count(self, n):
+            return n
+
+        def pe_cuda_error_string(self, err):
+            return b"an illegal memory access was encountered"
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(_build, "load_library", Lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: streams.append(dev) or Stream())
+    t = torch.zeros(3)
+    with _build.launcher("cuda:0") as launch:
+        launch("pe_ok", t, None, 5)
+        launch("pe_ok", t)
+        assert launch.query("pe_count", 7) == 7
+        with pytest.raises(RuntimeError,
+                           match=r"pe_bad failed: CUDA error 700 \(an il"):
+            launch("pe_bad", t)
+        with pytest.raises(RuntimeError, match="pe_count failed: CUDA error 3"):
+            launch.query("pe_count", -3)
+    assert streams == ["cuda:0"]
+    (p1, none, five, s1), (p2, s2) = calls
+    assert p1 == p2 == t.data_ptr() and none is None and five == 5
+    assert s1.value == s2.value == 1234
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

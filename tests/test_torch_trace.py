@@ -62,7 +62,7 @@ def _mesh_solve(mesh):
 @pytest.fixture(scope="module")
 def ladder():
     """A series-ladder core with its source's border, LANES source values
-    (the benchmark's PCR route at a small size)."""
+    (the benchmark's ladder route at a small size)."""
     n = 500
     g = 1.0 / 30.0
     d = torch.full((n,), 2 * g, dtype=F64)
@@ -119,8 +119,7 @@ MESH_PARENTS = {
 LADDER_PARENTS = {
     "pe.border_solve": {None},
     "pe.refine": {"pe.border_solve"},
-    "pe.pcr": {"pe.border_solve", "pe.refine"},
-    "pe.sync.tridiag_edge": {"pe.pcr", "pe.refine"},
+    "pe.tridiag_part": {"pe.border_solve", "pe.refine"},
 }
 
 
@@ -137,10 +136,12 @@ def test_profiled_routes_record_the_spans_nested(route, mesh, ladder):
     for i, parent in _parents(spans).items():
         assert parent in want[names[i]], (names[i], parent)
     if route == "ladder":
-        assert names.count("pe.pcr") == 6 and names.count("pe.refine") == 4
+        # the factor and six solves
+        assert names.count("pe.tridiag_part") == 7
+        assert names.count("pe.refine") == 4
         # each refinement pass holds its base solve
         assert all(p == "pe.refine" for i, p in _parents(spans).items()
-                   if names[i] == "pe.pcr" and spans[i][1] > spans[
+                   if names[i] == "pe.tridiag_part" and spans[i][1] > spans[
                        names.index("pe.refine")][1])
     else:
         bursts = names.count("pe.bicgstab.burst")
@@ -184,8 +185,8 @@ def test_host_syncs_count_every_sync_site(route, mesh, ladder):
         # and the shadow's copy and the read of whether Jacobi converged
         assert d["host_syncs"] == stops + 2
     else:
-        # two edge writes in each of six PCR solves and four matvecs
-        assert d["host_syncs"] == 2 * (6 + 4)
+        # the partitioned solves and the residual write no scalar
+        assert d["host_syncs"] == 0
 
 
 def _lanes_system(n=400, seed=2):
@@ -214,14 +215,39 @@ def test_iterations_launched_cover_the_slowest_lane(tol):
 def test_counters_carry_the_kernels_launches(monkeypatch):
     from phy_engine_tpu_torch.digital import turbo
     from phy_engine_tpu_torch.ops import gj, lu_block
-    for k, fn in enumerate((gj.gj_solve32, gj.gj_inverse32,
-                            lu_block.lu_block_inverse32, turbo.run_turbo,
-                            sparse.coo_spmm)):
+    wrappers = (gj.gj_solve32, gj.gj_inverse32, lu_block.lu_block_inverse32,
+                turbo.run_turbo, sparse.coo_spmm, tridiag.tridiag_part64)
+    for k, fn in enumerate(wrappers):
         monkeypatch.setattr(fn, "launches", 11 + k)
     c = trace.counters()
-    assert (c["gj_solve32.launches"], c["gj_inverse32.launches"],
-            c["lu_block_inverse32.launches"], c["run_turbo.launches"],
-            c["coo_spmm.launches"]) == (11, 12, 13, 14, 15)
+    assert [c[f"{fn.__name__}.launches"] for fn in wrappers] == \
+        list(range(11, 17))
+
+
+def test_trace_imports_no_kernel_module():
+    """``trace.py`` imports no module of the package, so none of ``ops/``
+    or ``digital/``: the kernels' wrappers register themselves when they
+    are imported.  Loaded by its path on its own, outside the package, it
+    runs, and its counters hold only what was counted."""
+    import ast
+    import importlib.util
+    tree = ast.parse(open(trace.__file__).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            assert node.level == 0, ast.unparse(node)
+            names = [node.module]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        assert not any(n.startswith("phy_engine_tpu") for n in names), \
+            ast.unparse(node)
+    spec = importlib.util.spec_from_file_location("pe_trace_alone",
+                                                  trace.__file__)
+    alone = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(alone)
+    alone.count("x")
+    assert alone.counters() == {"x": 1}
 
 
 @pytest.mark.parametrize("t", [

@@ -295,52 +295,59 @@ def test_partition_border_solve_matches_jax_and_dense(N):
         assert np.isclose(float(ib[k]), refk[N], rtol=1e-9, atol=1e-12)
 
 
-def test_border_solve_on_the_cpu_keeps_pcr(monkeypatch):
-    """On CPU tensors ``border_solve`` takes PCR (six ``tridiag_solve``
-    calls at refine 4, no ``PartitionFactor``), with the answer it gave
-    before the partitioned route existed; no kernel launch is counted."""
+def test_border_solve_on_the_cpu_takes_the_twin(monkeypatch):
+    """On CPU tensors ``border_solve`` at refine 4 runs six
+    ``PartitionFactor`` solves (the plain twin: no launch) and no host
+    sync, to the answer of its Schur pass written out over
+    ``part_solve_plain``, bit for bit."""
+    from phy_engine_tpu_torch import trace
     dl, dd, du, e = _bordered_ladder(300)
     z = np.random.default_rng(3).standard_normal((2, 300)) * 1e-3
-    args = (_t(dl), _t(dd), _t(du), _t(z), _t(e), _t([3.0, 1.5]))
+    a, d, c, zz, ee, rb = (_t(dl), _t(dd), _t(du), _t(z), _t(e),
+                           _t([3.0, 1.5]))
     calls = []
-    pcr = tt.tridiag_solve
-    monkeypatch.setattr(tt, "tridiag_solve",
-                        lambda *a: calls.append(1) or pcr(*a))
-    monkeypatch.setattr(tt, "PartitionFactor", None)
-    before = tt.tridiag_part64.launches
-    v, i = tt.border_solve(*args, refine=4)
+    solve = tt.PartitionFactor.solve
+    monkeypatch.setattr(tt.PartitionFactor, "solve",
+                        lambda f, b: calls.append(1) or solve(f, b))
+    before = trace.counters()
+    v, i = tt.border_solve(a, d, c, zz, ee, rb, refine=4)
+    after = trace.counters()
     assert len(calls) == 6
-    assert tt.tridiag_part64.launches == before
-    # the PCR route written out: t_e, then base(z) and four refinements
-    a, c = args[0], args[2]
-    t_e = pcr(a, args[1], c, args[4])
-    ete = (args[4] * t_e).sum(-1)
+    assert after["tridiag_part64.launches"] == \
+        before["tridiag_part64.launches"]
+    assert after.get("host_syncs", 0) == before.get("host_syncs", 0)
+    # the Schur pass written out: t_e, then base(z) and four refinements
+    levels, direct = tt.part_factor_plain(a, d, c)
+    t_e = tt.part_solve_plain(levels, direct, ee)
+    ete = t_e @ ee
 
-    def base(zz, rb):
-        t_z = pcr(a, args[1], c, zz)
-        ii = ((args[4] * t_z).sum(-1) - rb) / ete
-        return t_z - t_e * ii[..., None], ii
+    def base(zk, rk):
+        t_z = tt.part_solve_plain(levels, direct, zk)
+        ik = (t_z @ ee - rk) / ete
+        return torch.addcmul(t_z, t_e, ik[..., None], value=-1.0), ik
 
-    vv, ii = base(args[3], args[5])
+    vv, ii = base(zz, rb)
     for _ in range(4):
-        r1 = args[3] - tt.tridiag_matvec(a, args[1], c, vv) \
-            - args[4] * ii[..., None]
-        dv, di = base(r1, args[5] - (args[4] * vv).sum(-1))
+        dv, di = base(tt._residual(a, d, c, zz, vv, ee, ii), rb - vv @ ee)
         vv, ii = vv + dv, ii + di
     assert torch.equal(v, vv) and torch.equal(i, ii)
 
 
 def test_partition_factor_on_the_cpu_counts_no_launch():
     """The twin factors and solves CPU tensors of any shape it takes with
-    no launch counted; the route picks PCR for CPU inputs; 2-D or ragged
-    diagonals raise."""
+    no launch counted; 2-D or ragged diagonals raise, in
+    ``border_solve`` too, as does a 2-D border."""
     dl, d, du, b = _shared(1000, 4, (2,))
     before = tt.tridiag_part64.launches
     fac = tt.PartitionFactor(_t(dl), _t(d), _t(du))
     fac.solve(_t(b))
     fac.solve(_t(b[0]))
     assert tt.tridiag_part64.launches == before
-    assert not tt._part_route(_t(dl), _t(d), _t(du), _t(b), _t(b[0]))
+    with pytest.raises(ValueError):
+        tt.border_solve(_t(dl)[None], _t(d)[None], _t(du)[None], _t(b),
+                        _t(b[0]), _t(1.0))
+    with pytest.raises(ValueError):
+        tt.border_solve(_t(dl), _t(d), _t(du), _t(b), _t(b), _t([1.0, 2.0]))
     with pytest.raises(ValueError):
         tt.PartitionFactor(_t(dl)[None], _t(d)[None], _t(du)[None])
     with pytest.raises(ValueError):

@@ -311,7 +311,16 @@ Phases (each prints one line; any failure raises, exit code non-zero):
               |b|; the solve's time (CUDA events, P C C P) beside its bytes
               bound, the factor's, the twin's and one PCR solve's
               (tridiag_solve, the route border_solve took before) at the
-              same shape.  Then workloads.ladder_dc (bench_ladder.py's
+              same shape.  Then its per-lane form at the
+              mesh100k_l1000.dc cell's band: 64 lanes of a random
+              diagonally dominant T of 10^5 rows each, the right side the
+              band's rows of a (64, 10^5 + 1) array read in place, factor
+              and solve bit for bit the twin, two right sides a lane at
+              once too, a repeat bit-identical, a factor of 64 equal
+              lanes bit for bit the shared kernel; the solve's time (P C
+              C P) beside its bytes bound and PCRFactor.solve's (the
+              chain preconditioner's band before), the factor's.
+              Then workloads.ladder_dc (bench_ladder.py's
               default mode, the reference's 1000000xR.cpp): netlist,
               assemble_sparse on the card, the host's tridiagonal + border
               extraction, then ops/tridiag.py::border_solve (on the card
@@ -2635,10 +2644,77 @@ def tridiag_part_kernel(dev, smi, lanes=16, n=10 ** 6, reps=20):
     return r
 
 
+def tridiag_part_lanes_kernel(dev, smi, lanes=64, n=10 ** 5, reps=20):
+    """Phase 17's second part: tridiag_part64 with one T a lane at the
+    mesh100k_l1000.dc cell's band (see the module docstring).  Returns
+    the solve's and the factor's ms and the bytes bound's."""
+    g = torch.Generator(device=dev).manual_seed(171)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    dl, du = -torch.rand((lanes, n), **f64), -torch.rand((lanes, n), **f64)
+    d = dl.abs() + du.abs() + 0.5 + torch.rand((lanes, n), **f64)
+    # the band's rows of the right side, as the chain preconditioner
+    # reads them: rows n + 1 apart
+    b = torch.randn((lanes, n + 1), **f64)[:, :n]
+    fac = tridiag.PartitionFactor(dl, d, du)
+    levels, direct = tridiag.part_factor_plain(dl, d, du)
+    same = all(torch.equal(u, v) for lk, lp in zip(fac.levels, levels)
+               for u, v in zip(lk[1:], lp[1:]))
+    same &= all(torch.equal(u, v) for u, v in zip(fac.direct[1:], direct[1:]))
+    check(same, "tridiag_part64 per lane: the card's factor differs from "
+          "the twin's")
+    x, x2 = fac.solve(b), fac.solve(b)
+    plain = tridiag.part_solve_plain(fac.levels, fac.direct, b)
+    check(torch.equal(x, x2), "tridiag_part64 per lane: a repeat run is "
+          "not bit-identical")
+    check(torch.equal(x, plain), "tridiag_part64 per lane differs from the "
+          f"plain twin by {float((x - plain).abs().max()):.3e}")
+    bk = torch.randn((2 * lanes, n), **f64)
+    check(torch.equal(fac.solve(bk), tridiag.part_solve_plain(
+        fac.levels, fac.direct, bk)), "tridiag_part64 per lane, two right "
+        "sides a lane: differs from the twin")
+    one = [v[:1].expand(lanes, n).contiguous() for v in (dl, d, du)]
+    shared = tridiag.PartitionFactor(dl[0], d[0], du[0])
+    check(torch.equal(tridiag.PartitionFactor(*one).solve(b),
+                      shared.solve(b.contiguous())),
+          "tridiag_part64: a factor of equal lanes differs from the shared "
+          "one")
+    res = float((tridiag.tridiag_matvec(dl, d, du, x) - b).abs().max())
+    check(res <= 1e-12 * float(b.abs().max()), "tridiag_part64 per lane: "
+          f"residual {res:.3e}")
+    pcr = tridiag.PCRFactor(dl, d, du)
+    t = [time_ms(lambda: pcr.solve(b), reps),
+         time_ms(lambda: fac.solve(b), reps),
+         time_ms(lambda: fac.solve(b), reps),
+         time_ms(lambda: pcr.solve(b), reps)]
+    dense_ms = time_ms(lambda: fac.solve(b.contiguous()), reps)
+    del pcr
+    factor_ms = time_ms(lambda: tridiag.PartitionFactor(dl, d, du), reps)
+    # the least bytes of a solve: b read once, x written once, every
+    # level's factor once
+    fbytes = 8 * sum(v.numel() for lev in fac.levels for v in lev[1:])
+    fbytes += 8 * sum(v.numel() for v in fac.direct[1:])
+    nbytes = 8 * 2 * lanes * n + fbytes
+    ms = (t[1] + t[2]) / 2
+    bound_ms, by = bound(nbytes, 12 * lanes * n, FP64_FLOPS)
+    say(17, f"tridiag_part64 per lane at (B, n) = ({lanes}, {n}), levels "
+        f"{tridiag.part_sizes(n)}, b's rows {n + 1} apart: {ms:.4f} ms a "
+        f"solve ({bound_ms / ms * 100:.1f} % of its {bound_ms:.4f} ms {by} "
+        f"bound, {nbytes / 1e6:.1f} MB), {dense_ms:.4f} ms with b "
+        f"contiguous and its copy, factor {factor_ms:.4f} ms; "
+        f"PCRFactor.solve {(t[0] + t[3]) / 2:.4f} ms (P C C P: "
+        f"{', '.join(f'{v:.4f}' for v in t)}), on {smi}; bit for bit the "
+        "twin, factor and solve, at one and two right sides a lane; "
+        "repeat bit-identical; equal lanes bit for bit the shared kernel; "
+        f"max |T x - b| {res:.3e}")
+    return {"ms": ms, "factor_ms": factor_ms, "bound_ms": bound_ms,
+            "pcr_ms": (t[0] + t[3]) / 2}
+
+
 def phase17_ladder(dev, smi):
     """The 10^6-resistor ladder (see the module docstring, phase 17).
     Returns the kernel's measurements and its launches in the ladder."""
     r17 = tridiag_part_kernel(dev, smi)
+    tridiag_part_lanes_kernel(dev, smi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = tridiag.tridiag_part64.launches

@@ -136,10 +136,21 @@ def load_library() -> ctypes.CDLL:
     lib.pe_tridiag_part_reduce64.argtypes = [p, p, i, i] + [p] * 7
     lib.pe_tridiag_part_expand64.argtypes = [p, p, i, i] + [p] * 7
     lib.pe_tridiag_part_direct64.argtypes = [p, p, i, i] + [p] * 5
+    lib.pe_tridiag_part_factor_lanes64.argtypes = [p] * 3 + [i, i] + [p] * 8
+    lib.pe_tridiag_part_direct_factor_lanes64.argtypes = (
+        [p] * 3 + [i, i] + [p] * 4)
+    lib.pe_tridiag_part_reduce_lanes64.argtypes = [p, p, i, i, i, ll] + [p] * 7
+    lib.pe_tridiag_part_expand_lanes64.argtypes = [p, p, i, i, i, ll] + [p] * 7
+    lib.pe_tridiag_part_direct_lanes64.argtypes = [p, p, i, i, i, ll] + [p] * 5
     for fn in (lib.pe_tridiag_part_factor64,
                lib.pe_tridiag_part_direct_factor64,
                lib.pe_tridiag_part_reduce64, lib.pe_tridiag_part_expand64,
-               lib.pe_tridiag_part_direct64):
+               lib.pe_tridiag_part_direct64,
+               lib.pe_tridiag_part_factor_lanes64,
+               lib.pe_tridiag_part_direct_factor_lanes64,
+               lib.pe_tridiag_part_reduce_lanes64,
+               lib.pe_tridiag_part_expand_lanes64,
+               lib.pe_tridiag_part_direct_lanes64):
         fn.restype = i
     lib.pe_cuda_error_string.argtypes = [i]
     lib.pe_cuda_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,10 @@
-// Partitioned tridiagonal solve x = T^-1 b in float64 for one T shared by
-// every lane, for Hopper (sm_90a): Thomas within chunks, the chunks'
-// separators solved as a smaller tridiagonal system of the same kind,
-// recursively, then the chunks re-solved with their separators known.
+// Partitioned tridiagonal solve x = T^-1 b in float64, for Hopper
+// (sm_90a): Thomas within chunks, the chunks' separators solved as a
+// smaller tridiagonal system of the same kind, recursively, then the
+// chunks re-solved with their separators known.  Two forms, each its own
+// instantiation (kLane): one T shared by every lane (the bordered
+// ladder), and one T a lane (bt coefficient lanes; the sparse route's
+// chain preconditioner, whose band has its own values in every lane).
 //
 // Replaces no TPU kernel: the JAX package solves the bordered ladder by
 // parallel cyclic reduction in XLA (phy_engine_tpu/ops/tridiag.py::
@@ -49,6 +52,18 @@
 // ms a (16, 10^6) solve, 2.8x that bound, against 17.3 ms for one PCR
 // solve; the factor 0.146 ms.
 //
+// The per-lane form (the *_lanes64 entries): T is (bt, n), a level's w,
+// ip, t (bt, 31, C), edge (bt, 10, C), the last level's (bt, n); the
+// right side is (R, n), R a multiple of bt, row r taking coefficient lane
+// r mod bt (so a factor's k border columns solve as one (k bt, n) call),
+// its rows ld apart at the top level (a band sliced from wider rows needs
+// no copy).  Nothing is shared between lanes, so a unit stages its own
+// coefficients, by cp.async straight into shared memory (93 copies a
+// thread in flight, no registers), read coalesced: (lane, row-in-chunk,
+// chunk) puts a group's 32 chunks side by side.  At the chain cell's (64,
+// 10^5) a solve reads b twice, the top level's coefficients twice (149
+// MB each) and writes x: ~460 MB.
+//
 // Design.  One warp a block, a thread a chunk: a block takes a contiguous
 // run of units (a unit is one lane of a group of kP = 32 chunks, 1,024
 // rows; units run group by group, lane by lane), and the grid holds as many
@@ -64,6 +79,7 @@
 // at N = 10^6 is three reduces (10^6 -> 31,250 -> 977 -> 31 rows), one
 // direct and three expands; the factor two launches a level and one direct.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -146,17 +162,20 @@ __device__ __forceinline__ void to_tile(double* tile, double (&v)[kM],
 // of kP chunks; units run group by group, lane by lane within a group, and
 // a block takes a contiguous run of them (so the grid is balanced to one
 // unit), staging a group's coefficients in shared memory once for all the
-// lanes of its run.  For each unit it stages the right side's kP kM rows
-// in the tile (coalesced), then each thread solves its chunk's interior in
+// lanes of its run (kLane: once a unit, from the unit's coefficient lane,
+// by cp.async).  For each unit it stages the right side's kP kM rows in
+// the tile (coalesced), then each thread solves its chunk's interior in
 // registers.  Reduce writes the next level's P and Q; expand writes x
-// through the tile, coalesced.
-template <bool kExpand>
+// through the tile, coalesced.  kLane: p's rows lie ld apart (q's, P's,
+// Q's and x's are dense); bt coefficient lanes.
+template <bool kExpand, bool kLane>
 __global__ void __launch_bounds__(kP)
 part_sweep(const double* __restrict__ p, const double* __restrict__ q, int n,
            int C, int B, long long units, const double* __restrict__ w,
            const double* __restrict__ ip, const double* __restrict__ t,
            const double* __restrict__ edge, const double* __restrict__ xs_in,
-           double* __restrict__ out0, double* __restrict__ out1) {
+           double* __restrict__ out0, double* __restrict__ out1, int bt,
+           long long ld) {
   __shared__ double coef[3][kI][kP];
   __shared__ double tile[kP * kPad];
   const int tid = threadIdx.x;
@@ -165,10 +184,15 @@ part_sweep(const double* __restrict__ p, const double* __restrict__ q, int n,
   const long long cc = C;
   double* col = tile + tid * kPad;
   int staged = -1;
+  long long staged_lane = -1;
   // unit u's lane offset and first row of this thread
   auto at = [&](long long u, long long* off, long long* row) {
     const long long g = u / B;
-    *off = (u - g * B) * n;
+    if constexpr (kLane) {
+      *off = (u - g * B) * ld;
+    } else {
+      *off = (u - g * B) * n;
+    }
     *row = g * kP * kM + tid;
   };
   double v[kM];
@@ -181,16 +205,34 @@ part_sweep(const double* __restrict__ p, const double* __restrict__ q, int n,
     const int g = static_cast<int>(u / B);
     const int lane = static_cast<int>(u - static_cast<long long>(g) * B);
     const int k = g * kP + tid;
+    const int cl = kLane ? lane % bt : 0;    // the unit's coefficient lane
+    const double* eg = edge + static_cast<long long>(cl) * kEdges * cc;
     __syncthreads();                 // the last unit is done with both
-    if (g != staged && k < C) {
+    if constexpr (kLane) {
+      // a thread reads back only its own column: no barrier needed
+      const long long key = static_cast<long long>(g) * bt + cl;
+      if (key != staged_lane && k < C) {
+        const long long c0 = static_cast<long long>(cl) * kI * cc + k;
 #pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        coef[0][j][tid] = __ldg(w + j * cc + k);
-        coef[1][j][tid] = __ldg(ip + j * cc + k);
-        coef[2][j][tid] = __ldg(t + j * cc + k);
+        for (int j = 0; j < kI; ++j) {
+          __pipeline_memcpy_async(&coef[0][j][tid], w + c0 + j * cc, 8);
+          __pipeline_memcpy_async(&coef[1][j][tid], ip + c0 + j * cc, 8);
+          __pipeline_memcpy_async(&coef[2][j][tid], t + c0 + j * cc, 8);
+        }
+        __pipeline_commit();
       }
+      staged_lane = key;
+    } else {
+      if (g != staged && k < C) {
+#pragma unroll
+        for (int j = 0; j < kI; ++j) {
+          coef[0][j][tid] = __ldg(w + j * cc + k);
+          coef[1][j][tid] = __ldg(ip + j * cc + k);
+          coef[2][j][tid] = __ldg(t + j * cc + k);
+        }
+      }
+      staged = g;
     }
-    staged = g;
     const long long row0 = static_cast<long long>(g) * kP * kM;
     to_tile(tile, v, q, off, row, n);
     __syncthreads();
@@ -199,6 +241,7 @@ part_sweep(const double* __restrict__ p, const double* __restrict__ q, int n,
       load_p(v, p, off, row, n);
     }
     const long long loff = static_cast<long long>(lane) * C;
+    if constexpr (kLane) __pipeline_wait_prior(0);
     if (k < C) {
       double r[kI];
 #pragma unroll
@@ -209,14 +252,14 @@ part_sweep(const double* __restrict__ p, const double* __restrict__ q, int n,
       if (!kExpand) {
         interior(r, W, IP, Tt);
         // out0 = P, out1 = Q of the next level
-        out0[loff + k] = sub(col[kM - 1], mul(__ldg(edge + kAs * cc + k),
+        out0[loff + k] = sub(col[kM - 1], mul(__ldg(eg + kAs * cc + k),
                                               r[kI - 1]));
-        out1[loff + k] = mul(__ldg(edge + kCq * cc + k), r[0]);
+        out1[loff + k] = mul(__ldg(eg + kCq * cc + k), r[0]);
       } else {
         const double xs = __ldg(xs_in + loff + k);
         const double xp = k > 0 ? __ldg(xs_in + loff + k - 1) : 0.0;
-        r[0] = sub(r[0], mul(__ldg(edge + kA0 * cc + k), xp));
-        r[kI - 1] = sub(r[kI - 1], mul(__ldg(edge + kCl * cc + k), xs));
+        r[0] = sub(r[0], mul(__ldg(eg + kA0 * cc + k), xp));
+        r[kI - 1] = sub(r[kI - 1], mul(__ldg(eg + kCl * cc + k), xs));
         interior(r, W, IP, Tt);
 #pragma unroll
         for (int j = 0; j < kI; ++j) col[j] = r[j];
@@ -238,7 +281,7 @@ part_sweep(const double* __restrict__ p, const double* __restrict__ q, int n,
 // The grid of a sweep: as many blocks as fit on the card at once (the
 // shared memory carved out to the most), at most one a unit.  Returns 0
 // and sets *blocks, or a CUDA error.
-template <bool kExpand>
+template <bool kExpand, bool kLane>
 int sweep_blocks(long long units, long long* blocks) {
   static int per_device[64];
   int dev = 0;
@@ -247,14 +290,14 @@ int sweep_blocks(long long units, long long* blocks) {
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (per_device[dev] == 0) {
     int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(part_sweep<kExpand>,
+    err = cudaFuncSetAttribute(part_sweep<kExpand, kLane>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, part_sweep<kExpand>, kP, 0);
+          &per_sm, part_sweep<kExpand, kLane>, kP, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     per_device[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
@@ -262,42 +305,55 @@ int sweep_blocks(long long units, long long* blocks) {
   return cudaSuccess;
 }
 
-template <bool kExpand>
+template <bool kExpand, bool kLane>
 int sweep(const double* p, const double* q, int n, int B, const double* w,
           const double* ip, const double* t, const double* edge,
-          const double* xs, double* out0, double* out1, void* stream) {
+          const double* xs, double* out0, double* out1, int bt, long long ld,
+          void* stream) {
   if (n < 1 || B < 1) return cudaErrorInvalidValue;
+  if (kLane && (bt < 1 || B % bt != 0 || ld < n))
+    return cudaErrorInvalidValue;
   const int C = (n + kM - 1) / kM;
   const long long units = static_cast<long long>((C + kP - 1) / kP) * B;
   long long blocks = 0;
-  const int err = sweep_blocks<kExpand>(units, &blocks);
+  const int err = sweep_blocks<kExpand, kLane>(units, &blocks);
   if (err != cudaSuccess) return err;
-  part_sweep<kExpand><<<static_cast<unsigned>(blocks), kP, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      p, q, n, C, B, units, w, ip, t, edge, xs, out0, out1);
+  part_sweep<kExpand, kLane><<<static_cast<unsigned>(blocks), kP, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      p, q, n, C, B, units, w, ip, t, edge, xs, out0, out1, bt, ld);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One thread a lane: Thomas over the whole (small) level, z kept in x.
+// kLane: coefficients (bt, n), row r's from lane r mod bt; p's rows ld
+// apart.
+template <bool kLane>
 __global__ void __launch_bounds__(kDirectThreads)
 part_direct(const double* __restrict__ p, const double* __restrict__ q,
             int n, int B, const double* __restrict__ w,
             const double* __restrict__ ip, const double* __restrict__ t,
-            double* __restrict__ x) {
+            double* __restrict__ x, int bt, long long ld) {
   const int lane = blockIdx.x * kDirectThreads + threadIdx.x;
   if (lane >= B) return;
-  const long long off = static_cast<long long>(lane) * n;
+  const long long xo = static_cast<long long>(lane) * n;
+  const long long off = kLane ? lane * ld : xo;
+  if constexpr (kLane) {
+    const long long c0 = static_cast<long long>(lane % bt) * n;
+    w += c0;
+    ip += c0;
+    t += c0;
+  }
   double z = rhs(p, q, off, 0, n);
-  x[off] = z;
+  x[xo] = z;
   for (int i = 1; i < n; ++i) {
     z = sub(rhs(p, q, off, i, n), mul(__ldg(w + i), z));
-    x[off + i] = z;
+    x[xo + i] = z;
   }
   double y = mul(z, __ldg(ip + n - 1));
-  x[off + n - 1] = y;
+  x[xo + n - 1] = y;
   for (int i = n - 2; i >= 0; --i) {
-    y = sub(mul(x[off + i], __ldg(ip + i)), mul(__ldg(t + i), y));
-    x[off + i] = y;
+    y = sub(mul(x[xo + i], __ldg(ip + i)), mul(__ldg(t + i), y));
+    x[xo + i] = y;
   }
 }
 
@@ -318,15 +374,31 @@ struct Diags {
 };
 
 // One thread a chunk: the interior's Thomas factor, its couplings and its
-// two spikes' tips.
+// two spikes' tips.  kLane: one thread a (lane, chunk) of bt lanes, T's
+// diagonals (bt, n), the outputs (bt, 31, C) and (bt, 10, C).
+template <bool kLane>
 __global__ void __launch_bounds__(kFactorThreads)
 part_factor_chunks(Diags T, int C, double* __restrict__ w,
                    double* __restrict__ ip, double* __restrict__ t,
-                   double* __restrict__ edge) {
-  const int k = blockIdx.x * kFactorThreads + threadIdx.x;
-  if (k >= C) return;
-  const long long r0 = static_cast<long long>(k) * kM;
+                   double* __restrict__ edge, int bt) {
+  int k = blockIdx.x * kFactorThreads + threadIdx.x;
   const long long cc = C;
+  if constexpr (kLane) {
+    if (k >= bt * C) return;
+    const int lane = k / C;
+    k -= lane * C;
+    const long long d0 = static_cast<long long>(lane) * T.n;
+    T.a += d0;
+    T.d += d0;
+    T.c += d0;
+    w += lane * kI * cc;
+    ip += lane * kI * cc;
+    t += lane * kI * cc;
+    edge += lane * kEdges * cc;
+  } else {
+    if (k >= C) return;
+  }
+  const long long r0 = static_cast<long long>(k) * kM;
   // the coefficients stay in registers for the spikes: what this kernel
   // writes it may not read back through the read-only path
   double wl[kI], ipl[kI], tl[kI];
@@ -369,14 +441,26 @@ part_factor_chunks(Diags T, int C, double* __restrict__ w,
   edge[kGrL * cc + k] = gr[kI - 1];
 }
 
-// One thread a separator: the next level's row.
+// One thread a separator: the next level's row.  kLane: a (lane,
+// separator) of bt lanes, the next level's diagonals (bt, C).
+template <bool kLane>
 __global__ void __launch_bounds__(kFactorThreads)
 part_factor_reduce(const double* __restrict__ edge, int C,
                    double* __restrict__ a2, double* __restrict__ d2,
-                   double* __restrict__ c2) {
-  const int k = blockIdx.x * kFactorThreads + threadIdx.x;
-  if (k >= C) return;
+                   double* __restrict__ c2, int bt) {
+  int k = blockIdx.x * kFactorThreads + threadIdx.x;
   const long long cc = C;
+  if constexpr (kLane) {
+    if (k >= bt * C) return;
+    const int lane = k / C;
+    k -= lane * C;
+    edge += lane * kEdges * cc;
+    a2 += lane * cc;
+    d2 += lane * cc;
+    c2 += lane * cc;
+  } else {
+    if (k >= C) return;
+  }
   const double as = edge[kAs * cc + k];
   const double cs = edge[kCs * cc + k];
   const double glf = k + 1 < C ? edge[kGlF * cc + k + 1] : 0.0;
@@ -387,11 +471,25 @@ part_factor_reduce(const double* __restrict__ edge, int C,
   c2[k] = -mul(cs, grf);
 }
 
-// One thread: Thomas's factor of the whole (small) last level.
+// One thread: Thomas's factor of the whole (small) last level.  kLane:
+// one thread a lane of bt, T's diagonals and w, ip, t (bt, n).
+template <bool kLane>
 __global__ void part_direct_factor(Diags T, double* __restrict__ w,
                                    double* __restrict__ ip,
-                                   double* __restrict__ t) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+                                   double* __restrict__ t, int bt) {
+  if constexpr (kLane) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= bt) return;
+    const long long d0 = static_cast<long long>(lane) * T.n;
+    T.a += d0;
+    T.d += d0;
+    T.c += d0;
+    w += d0;
+    ip += d0;
+    t += d0;
+  } else {
+    if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  }
   double ipv = quo(1.0, T.D(0));
   w[0] = 0.0;
   ip[0] = ipv;
@@ -407,6 +505,50 @@ __global__ void part_direct_factor(Diags T, double* __restrict__ w,
 
 int chunks(int n) { return (n + kM - 1) / kM; }
 
+template <bool kLane>
+int factor(const double* a, const double* d, const double* c, int n, int bt,
+           double* w, double* ip, double* t, double* edge, double* a2,
+           double* d2, double* c2, void* stream) {
+  if (n < 1 || bt < 1) return cudaErrorInvalidValue;
+  const int C = chunks(n);
+  const long long rows = kLane ? static_cast<long long>(bt) * C : C;
+  const unsigned blocks = (rows + kFactorThreads - 1) / kFactorThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  part_factor_chunks<kLane><<<blocks, kFactorThreads, 0, st>>>(
+      Diags{a, d, c, n}, C, w, ip, t, edge, bt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  part_factor_reduce<kLane><<<blocks, kFactorThreads, 0, st>>>(
+      edge, C, a2, d2, c2, bt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kLane>
+int direct_factor(const double* a, const double* d, const double* c, int n,
+                  int bt, double* w, double* ip, double* t, void* stream) {
+  if (n < 1 || bt < 1) return cudaErrorInvalidValue;
+  const unsigned blocks = kLane ? (bt + kDirectThreads - 1) / kDirectThreads
+                                : 1;
+  part_direct_factor<kLane><<<blocks, kLane ? kDirectThreads : 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      Diags{a, d, c, n}, w, ip, t, bt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kLane>
+int direct(const double* p, const double* q, int n, int B, int bt,
+           long long ld, const double* w, const double* ip, const double* t,
+           double* x, void* stream) {
+  if (n < 1 || B < 1) return cudaErrorInvalidValue;
+  if (kLane && (bt < 1 || B % bt != 0 || ld < n))
+    return cudaErrorInvalidValue;
+  const unsigned blocks = (B + kDirectThreads - 1) / kDirectThreads;
+  part_direct<kLane><<<blocks, kDirectThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      p, q, n, B, w, ip, t, x, bt, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The factor of one level of n > 0 rows (C = ceil(n / 32) chunks): w, ip,
@@ -417,16 +559,7 @@ extern "C" int pe_tridiag_part_factor64(const double* a, const double* d,
                                         double* ip, double* t, double* edge,
                                         double* a2, double* d2, double* c2,
                                         void* stream) {
-  if (n < 1) return cudaErrorInvalidValue;
-  const int C = chunks(n);
-  const unsigned blocks = (C + kFactorThreads - 1) / kFactorThreads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  part_factor_chunks<<<blocks, kFactorThreads, 0, st>>>(Diags{a, d, c, n},
-                                                         C, w, ip, t, edge);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  part_factor_reduce<<<blocks, kFactorThreads, 0, st>>>(edge, C, a2, d2, c2);
-  return static_cast<int>(cudaGetLastError());
+  return factor<false>(a, d, c, n, 1, w, ip, t, edge, a2, d2, c2, stream);
 }
 
 // Thomas's factor of the last level (n rows): w, ip, t (n,).  One launch.
@@ -435,10 +568,7 @@ extern "C" int pe_tridiag_part_direct_factor64(const double* a,
                                                const double* c, int n,
                                                double* w, double* ip,
                                                double* t, void* stream) {
-  if (n < 1) return cudaErrorInvalidValue;
-  part_direct_factor<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      Diags{a, d, c, n}, w, ip, t);
-  return static_cast<int>(cudaGetLastError());
+  return direct_factor<false>(a, d, c, n, 1, w, ip, t, stream);
 }
 
 // One level's first sweep for B lanes: right side p - q[+1] (B, n) (q null
@@ -448,7 +578,8 @@ extern "C" int pe_tridiag_part_reduce64(const double* p, const double* q,
                                         const double* ip, const double* t,
                                         const double* edge, double* p2,
                                         double* q2, void* stream) {
-  return sweep<false>(p, q, n, B, w, ip, t, edge, nullptr, p2, q2, stream);
+  return sweep<false, false>(p, q, n, B, w, ip, t, edge, nullptr, p2, q2, 1,
+                             n, stream);
 }
 
 // One level's last sweep: the same right side and the separators' values
@@ -458,7 +589,8 @@ extern "C" int pe_tridiag_part_expand64(const double* p, const double* q,
                                         const double* ip, const double* t,
                                         const double* edge, const double* xs,
                                         double* x, void* stream) {
-  return sweep<true>(p, q, n, B, w, ip, t, edge, xs, x, nullptr, stream);
+  return sweep<true, false>(p, q, n, B, w, ip, t, edge, xs, x, nullptr, 1, n,
+                            stream);
 }
 
 // The last level solved by Thomas, one thread a lane: right side p - q[+1]
@@ -467,9 +599,47 @@ extern "C" int pe_tridiag_part_direct64(const double* p, const double* q,
                                         int n, int B, const double* w,
                                         const double* ip, const double* t,
                                         double* x, void* stream) {
-  if (n < 1 || B < 1) return cudaErrorInvalidValue;
-  const unsigned blocks = (B + kDirectThreads - 1) / kDirectThreads;
-  part_direct<<<blocks, kDirectThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(p, q, n, B, w, ip, t, x);
-  return static_cast<int>(cudaGetLastError());
+  return direct<false>(p, q, n, B, 1, n, w, ip, t, x, stream);
+}
+
+// The per-lane form of each entry above: bt coefficient lanes, T's
+// diagonals (bt, n), every factor array with a leading bt; B right sides,
+// a multiple of bt, row r solved with lane r mod bt's coefficients; ld
+// the distance between p's rows (n below the top level, where q is not
+// null).
+
+extern "C" int pe_tridiag_part_factor_lanes64(
+    const double* a, const double* d, const double* c, int n, int bt,
+    double* w, double* ip, double* t, double* edge, double* a2, double* d2,
+    double* c2, void* stream) {
+  return factor<true>(a, d, c, n, bt, w, ip, t, edge, a2, d2, c2, stream);
+}
+
+extern "C" int pe_tridiag_part_direct_factor_lanes64(
+    const double* a, const double* d, const double* c, int n, int bt,
+    double* w, double* ip, double* t, void* stream) {
+  return direct_factor<true>(a, d, c, n, bt, w, ip, t, stream);
+}
+
+extern "C" int pe_tridiag_part_reduce_lanes64(
+    const double* p, const double* q, int n, int B, int bt, long long ld,
+    const double* w, const double* ip, const double* t, const double* edge,
+    double* p2, double* q2, void* stream) {
+  return sweep<false, true>(p, q, n, B, w, ip, t, edge, nullptr, p2, q2, bt,
+                            ld, stream);
+}
+
+extern "C" int pe_tridiag_part_expand_lanes64(
+    const double* p, const double* q, int n, int B, int bt, long long ld,
+    const double* w, const double* ip, const double* t, const double* edge,
+    const double* xs, double* x, void* stream) {
+  return sweep<true, true>(p, q, n, B, w, ip, t, edge, xs, x, nullptr, bt,
+                           ld, stream);
+}
+
+extern "C" int pe_tridiag_part_direct_lanes64(
+    const double* p, const double* q, int n, int B, int bt, long long ld,
+    const double* w, const double* ip, const double* t, double* x,
+    void* stream) {
+  return direct<true>(p, q, n, B, bt, ld, w, ip, t, x, stream);
 }

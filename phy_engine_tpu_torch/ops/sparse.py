@@ -19,7 +19,8 @@ has no Pallas kernel here: XLA fuses the product there.
   remainder;
 * ``bicgstab`` — f64 BiCGStab on COO (the ``Circuit`` sparse route),
   Jacobi-preconditioned until a pattern needs the chain preconditioner
-  (``ChainPreconditioner``: the tridiagonal band by PCR and a Schur
+  (``ChainPreconditioner``: the tridiagonal band by the partitioned
+  solve of ``ops/tridiag.py`` in float64, PCR in float32, and a Schur
   border); ``bicgstab_ell`` — f32 Krylov on an ELL / BandedCOO layout with
   f64 refinement passes (``bench_sparse.py``'s solver).
 
@@ -56,7 +57,7 @@ import torch
 from ..trace import (count, host_read, kernel_wrapper, span, spanned,
                      sync_site)
 from ._build import launcher
-from .tridiag import PCRFactor
+from .tridiag import PartitionFactor, PCRFactor
 
 CHECK_EVERY = 8      # iterations between host reads of the stop condition
 _ORDERED_MAX = 8     # rows up to this wide sum strictly left to right
@@ -559,12 +560,15 @@ class ChainPreconditioner:
         M = [T  E^T]   over (band, border),
             [F  D  ]
 
-    factored once (:class:`ChainPlan` gathers the pieces): T by
-    :class:`~.tridiag.PCRFactor`, T^-1 E^T by it (k solves at once) and
+    factored once (:class:`ChainPlan` gathers the pieces): T, in float64,
+    by :class:`~.tridiag.PartitionFactor` (shared where the values are
+    (nnz,), one T a lane where they are (B, nnz)), else by
+    :class:`~.tridiag.PCRFactor`; T^-1 E^T by it (k solves at once) and
     the Schur matrix S = D - F T^-1 E^T, (..., k, k), inverted.  An
     application is t = T^-1 r_band, i = S^-1 (r_border - F t),
-    v = t - (T^-1 E^T) i: PCR's right-side rounds and a few small
-    products, with no host synchronisation.  On a chain-dominated
+    v = t - (T^-1 E^T) i: one partitioned solve (on the card, 7 launches
+    at 10^5 band rows; PCR's right-side rounds in float32) and a few
+    small products, with no host synchronisation.  On a chain-dominated
     network (a long RC or resistor chain with sparse shortcuts) M^-1 A is
     the identity plus a term of low rank for each shortcut, where Jacobi
     needs iterations in proportion to the chain's length."""
@@ -575,13 +579,17 @@ class ChainPreconditioner:
         with span("pe.chain_factor"):
             count("chain.factors")
             band = plan.band.sum(vals).unflatten(-1, (3, m))
-            self.pcr = PCRFactor(band[..., 0, :], band[..., 1, :],
-                                 band[..., 2, :])
+            if band.dtype == torch.float64:
+                self.tri = PartitionFactor(
+                    *(band[..., j, :].contiguous() for j in range(3)))
+            else:
+                self.tri = PCRFactor(band[..., 0, :], band[..., 1, :],
+                                     band[..., 2, :])
             if k:
                 e = plan.e.sum(vals).unflatten(-1, (k, m))
                 self.f = plan.f.sum(vals).unflatten(-1, (k, m))
                 # T^-1 E^T, (..., k, m): the k columns solved as one batch
-                self.t_e = self.pcr.solve(e.movedim(-2, 0)).movedim(0, -2)
+                self.t_e = self.tri.solve(e.movedim(-2, 0)).movedim(0, -2)
                 s = (plan.d.sum(vals).unflatten(-1, (k, k))
                      - self.f @ self.t_e.transpose(-1, -2))
                 self.s_inv = torch.linalg.inv_ex(s).inverse
@@ -593,7 +601,7 @@ class ChainPreconditioner:
             perm, inv_perm = plan.perms(r.device)
             if perm is not None:
                 r = r[..., perm]
-            t = self.pcr.solve(r[..., :plan.m])
+            t = self.tri.solve(r[..., :plan.m])
             if not plan.k:
                 return t if perm is None else t[..., inv_perm]
             i = (self.s_inv @ (r[..., plan.m:] - (

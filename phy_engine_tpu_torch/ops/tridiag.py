@@ -9,14 +9,15 @@ tridiagonal plus one voltage-source border row / column.  Three solvers:
   rounds of shifts and fused multiply-adds, no sequential dependence;
   ``PCRFactor`` keeps PCR's right-side-independent rounds
   (``_pcr_rounds``, which both share) for repeated solves with one T
-  (the sparse route's chain preconditioner, ``ops/sparse.py``).
+  (the sparse route's chain preconditioner in float32, ``ops/sparse.py``).
 * ``PartitionFactor`` — a partitioned solve for one T shared by every
-  lane: Thomas within chunks of ``PART_M`` rows, the chunks' separators
-  a smaller tridiagonal system of the same kind, recursively.  On a CUDA
-  tensor it is the hand-written kernel of ``csrc/tridiag_part.cu``
-  (``tridiag_part64``); its plain twin ``part_factor_plain`` /
-  ``part_solve_plain`` serves CPU tensors.  ``border_solve`` solves T
-  through it on every device.
+  lane, or for one T a lane: Thomas within chunks of ``PART_M`` rows, the
+  chunks' separators a smaller tridiagonal system of the same kind,
+  recursively.  On a CUDA tensor it is the hand-written kernel of
+  ``csrc/tridiag_part.cu`` (``tridiag_part64``, its shared and per-lane
+  forms); its plain twin ``part_factor_plain`` / ``part_solve_plain``
+  serves CPU tensors.  ``border_solve`` solves its shared T through it on
+  every device, the chain preconditioner its float64 band.
 * ``SpikeFactor`` — chunked (SPIKE) elimination for N in the 1e8 range:
   C chunks of M rows, each solved by Thomas, whose pivots come from a
   sequential recurrence (on the device, ``_thomas_factor``, or in true
@@ -585,7 +586,8 @@ class PartLevel(NamedTuple):
     """One level of a :class:`PartitionFactor`: n rows in C = ceil(n /
     PART_M) chunks; w, ip, t (31, C) the interiors' Thomas coefficients
     (row j of chunk k at [j, k]); edge (10, C) the couplings and the
-    spikes' tips."""
+    spikes' tips.  A per-lane factor's arrays have a leading lane axis:
+    (B, 31, C), (B, 10, C)."""
     n: int
     w: torch.Tensor
     ip: torch.Tensor
@@ -594,7 +596,8 @@ class PartLevel(NamedTuple):
 
 
 class PartDirect(NamedTuple):
-    """The last level, solved by Thomas over its n rows: w, ip, t (n,)."""
+    """The last level, solved by Thomas over its n rows: w, ip, t (n,), or
+    (B, n) for a per-lane factor."""
     n: int
     w: torch.Tensor
     ip: torch.Tensor
@@ -611,11 +614,13 @@ def part_sizes(n: int) -> list:
 
 
 def _part_diags(a, d, c, n: int, rows: int):
-    """A level's diagonals padded with identity rows to ``rows``, a[0] and
-    c[n - 1] dropped by slices."""
-    a = torch.cat([a.new_zeros(1), a[1:n], a.new_zeros(rows - n)])
-    c = torch.cat([c[:n - 1], c.new_zeros(rows - n + 1)])
-    d = torch.cat([d[:n], d.new_ones(rows - n)])
+    """A level's (..., n) diagonals padded with identity rows to
+    ``rows``, a[..., 0] and c[..., n - 1] dropped by slices."""
+    zeros = lambda k: a.new_zeros(a.shape[:-1] + (k,))
+    a = torch.cat([zeros(1), a[..., 1:n], zeros(rows - n)], dim=-1)
+    c = torch.cat([c[..., :n - 1], zeros(rows - n + 1)], dim=-1)
+    d = torch.cat([d[..., :n], d.new_ones(d.shape[:-1] + (rows - n,))],
+                  dim=-1)
     return a, d, c
 
 
@@ -646,92 +651,109 @@ def _part_interior(w, ip, t, r):
 
 def part_factor_plain(dl, d, du):
     """The plain twin of the card's factor: ([PartLevel], PartDirect) for
-    T (dl, d, du), each (n,); dl[0] and du[-1] are ignored."""
+    T (dl, d, du), each (n,), or (B, n) for one T a lane; dl[..., 0] and
+    du[..., -1] are ignored."""
     a, dd, c = dl, d, du
     levels = []
     sizes = part_sizes(d.shape[-1])
     for n, C in zip(sizes, sizes[1:]):
-        a, dd, c = (v.reshape(C, PART_M)
+        a, dd, c = (v.unflatten(-1, (C, PART_M))
                     for v in _part_diags(a, dd, c, n, C * PART_M))
-        w, ip, t = _part_thomas(a[:, :_PI], dd[:, :_PI], c[:, :_PI])
-        zero = torch.zeros_like(dd[:, 0])
-        gl = _part_interior(w, ip, t, [a[:, 0]] + [zero] * (_PI - 1))
-        gr = _part_interior(w, ip, t, [zero] * (_PI - 1) + [c[:, _PI - 1]])
-        z1 = zero[:1]
-        a_s, d_s, c_s = a[:, -1], dd[:, -1], c[:, -1]
-        edge = torch.stack([a[:, 0], c[:, _PI - 1], a_s,
-                            torch.cat([z1, c_s[:-1]]), d_s, c_s,
-                            gl[0], gl[-1], gr[0], gr[-1]])
-        levels.append(PartLevel(n, torch.stack(w), torch.stack(ip),
-                                torch.stack(t), edge))
-        glf = torch.cat([gl[0][1:], z1])
-        grf = torch.cat([gr[0][1:], z1])
+        w, ip, t = _part_thomas(a[..., :_PI], dd[..., :_PI], c[..., :_PI])
+        zero = torch.zeros_like(dd[..., 0])
+        gl = _part_interior(w, ip, t, [a[..., 0]] + [zero] * (_PI - 1))
+        gr = _part_interior(w, ip, t,
+                            [zero] * (_PI - 1) + [c[..., _PI - 1]])
+        z1 = zero[..., :1]
+        a_s, d_s, c_s = a[..., -1], dd[..., -1], c[..., -1]
+        edge = torch.stack([a[..., 0], c[..., _PI - 1], a_s,
+                            torch.cat([z1, c_s[..., :-1]], dim=-1), d_s, c_s,
+                            gl[0], gl[-1], gr[0], gr[-1]], dim=-2)
+        levels.append(PartLevel(n, torch.stack(w, dim=-2),
+                                torch.stack(ip, dim=-2),
+                                torch.stack(t, dim=-2), edge))
+        glf = torch.cat([gl[0][..., 1:], z1], dim=-1)
+        grf = torch.cat([gr[0][..., 1:], z1], dim=-1)
         a = -(a_s * gl[-1])
         dd = (d_s - a_s * gr[-1]) - c_s * glf
         c = -(c_s * grf)
     n = sizes[-1]
     w, ip, t = _part_thomas(*_part_diags(a, dd, c, n, n))
-    return levels, PartDirect(n, torch.stack(w), torch.stack(ip),
-                              torch.stack(t))
+    return levels, PartDirect(n, torch.stack(w, dim=-1),
+                              torch.stack(ip, dim=-1),
+                              torch.stack(t, dim=-1))
 
 
 def _part_rhs(p, q, n: int, rows: int):
-    """A level's right side p - q[+1] (B, n) (q None at the top level),
+    """A level's right side p - q[+1] (..., n) (q None at the top level),
     padded with zeros to ``rows``."""
     if q is not None:
-        p = p - torch.cat([q[:, 1:], q.new_zeros(q.shape[0], 1)], dim=1)
-    return torch.cat([p, p.new_zeros(p.shape[0], rows - n)], dim=1)
+        p = p - torch.cat([q[..., 1:], q.new_zeros(q.shape[:-1] + (1,))],
+                          dim=-1)
+    return torch.cat([p, p.new_zeros(p.shape[:-1] + (rows - n,))], dim=-1)
 
 
 def part_solve_plain(levels, direct, b):
-    """The plain twin of the card's solve: T^-1 b for b (n,) or (B, n)
-    through a factor's levels (``part_factor_plain``'s or the card's)."""
-    ps, qs = [b.reshape(-1, b.shape[-1])], [None]
+    """The plain twin of the card's solve: T^-1 b through a factor's
+    levels (``part_factor_plain``'s or the card's): b (..., n), its rows
+    in order; for a per-lane factor of B lanes the rows a multiple of B,
+    row r solved with lane r mod B's T."""
+    bt = direct.w.shape[0] if direct.w.dim() == 2 else 1
+    # (R / bt, bt, n): a per-lane factor's arrays broadcast over the first
+    # axis, a shared one's over both
+    ps, qs = [b.reshape(-1, bt, b.shape[-1])], [None]
     for lev in levels:
-        C = lev.edge.shape[1]
-        R = _part_rhs(ps[-1], qs[-1], lev.n, C * PART_M).reshape(-1, C,
-                                                                  PART_M)
-        y = _part_interior(lev.w, lev.ip, lev.t, R[..., :_PI].unbind(-1))
-        ps.append(R[..., -1] - lev.edge[_AS] * y[-1])
-        qs.append(lev.edge[_CQ] * y[0])
+        C = lev.edge.shape[-1]
+        R = _part_rhs(ps[-1], qs[-1], lev.n, C * PART_M).unflatten(
+            -1, (C, PART_M))
+        y = _part_interior(lev.w.unbind(-2), lev.ip.unbind(-2),
+                           lev.t.unbind(-2), R[..., :_PI].unbind(-1))
+        ps.append(R[..., -1] - lev.edge[..., _AS, :] * y[-1])
+        qs.append(lev.edge[..., _CQ, :] * y[0])
     r = _part_rhs(ps[-1], qs[-1], direct.n, direct.n)
-    z = [r[:, 0]]
+    z = [r[..., 0]]
     for i in range(1, direct.n):
-        z.append(r[:, i] - direct.w[i] * z[-1])
-    z[-1] = z[-1] * direct.ip[-1]
+        z.append(r[..., i] - direct.w[..., i] * z[-1])
+    z[-1] = z[-1] * direct.ip[..., -1]
     for i in range(direct.n - 2, -1, -1):
-        z[i] = z[i] * direct.ip[i] - direct.t[i] * z[i + 1]
-    x = torch.stack(z, dim=1)
+        z[i] = z[i] * direct.ip[..., i] - direct.t[..., i] * z[i + 1]
+    x = torch.stack(z, dim=-1)
     for lev, p, q in zip(levels[::-1], ps[-2::-1], qs[-2::-1]):
-        C = lev.edge.shape[1]
-        R = _part_rhs(p, q, lev.n, C * PART_M).reshape(-1, C, PART_M)
+        C = lev.edge.shape[-1]
+        R = _part_rhs(p, q, lev.n, C * PART_M).unflatten(-1, (C, PART_M))
         r = list(R[..., :_PI].unbind(-1))
-        xp = torch.cat([x.new_zeros(x.shape[0], 1), x[:, :-1]], dim=1)
-        r[0] = r[0] - lev.edge[_A0] * xp
-        r[-1] = r[-1] - lev.edge[_CL] * x
-        y = _part_interior(lev.w, lev.ip, lev.t, r)
-        x = torch.stack(y + [x], dim=-1).reshape(x.shape[0], -1)[:, :lev.n]
+        xp = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), x[..., :-1]],
+                       dim=-1)
+        r[0] = r[0] - lev.edge[..., _A0, :] * xp
+        r[-1] = r[-1] - lev.edge[..., _CL, :] * x
+        y = _part_interior(lev.w.unbind(-2), lev.ip.unbind(-2),
+                           lev.t.unbind(-2), r)
+        x = torch.stack(y + [x], dim=-1).flatten(-2)[..., :lev.n]
     return x.reshape(b.shape)
 
 
 class PartitionFactor:
-    """T (dl, d, du), each (n,) and shared by every lane, factored for the
-    partitioned solve (``dl[0]`` and ``du[-1]`` ignored).  On the CPU the
-    plain twin factors and solves; on a CUDA device the kernel of
-    ``csrc/tridiag_part.cu`` does (float64, contiguous, one device), or it
-    raises.  Nothing is kept across factors: each holds its own levels
-    (~3.4 arrays of n float64 at the top level)."""
+    """T (dl, d, du) factored for the partitioned solve (``dl[..., 0]``
+    and ``du[..., -1]`` ignored): each (n,), one T shared by every right
+    side, or each (B, n), one T a lane (``lanes`` B, else None), whose
+    solve takes rows in a multiple of B, row r through lane r mod B.  On
+    the CPU the plain twin factors and solves; on a CUDA device the kernel
+    of ``csrc/tridiag_part.cu`` does (float64, contiguous, one device), or
+    it raises.  Nothing is kept across factors: each holds its own levels
+    (~3.4 arrays of T's shape at the top level)."""
 
     @spanned("pe.tridiag_part")
     def __init__(self, dl, d, du):
         ts = (("dl", dl), ("d", d), ("du", du))
         for name, v in ts:
-            if not isinstance(v, torch.Tensor) or v.dim() != 1:
-                raise ValueError(f"{name} must be a 1-D tensor")
-        if not dl.shape == d.shape == du.shape or d.shape[0] < 1:
-            raise ValueError(f"dl, d, du of one length n >= 1 expected, got "
-                             f"{dl.shape[0]}, {d.shape[0]}, {du.shape[0]}")
-        self.n, self.device = int(d.shape[0]), d.device
+            if not isinstance(v, torch.Tensor) or v.dim() not in (1, 2):
+                raise ValueError(f"{name} must be a 1-D or 2-D tensor")
+        if not dl.shape == d.shape == du.shape or 0 in d.shape:
+            raise ValueError(f"dl, d, du of one shape (n,) or (B, n), n, B "
+                             f">= 1 expected, got {tuple(dl.shape)}, "
+                             f"{tuple(d.shape)}, {tuple(du.shape)}")
+        self.n, self.device = int(d.shape[-1]), d.device
+        self.lanes = int(d.shape[0]) if d.dim() == 2 else None
         if all(v.device.type == "cpu" for _n, v in ts):
             self.levels, self.direct = part_factor_plain(dl, d, du)
         else:
@@ -739,9 +761,10 @@ class PartitionFactor:
 
     @spanned("pe.tridiag_part")
     def solve(self, b):
-        """T^-1 b for b (n,) or (B, n): the plain twin where the factor and
-        b lie on the CPU, else the kernel (b float64, contiguous, on the
-        factor's device), or it raises."""
+        """T^-1 b for b (..., n), its rows in order (a multiple of
+        ``lanes`` of them for a per-lane factor): the plain twin where the
+        factor and b lie on the CPU, else the kernel (b float64 on the
+        factor's device, its last axis contiguous), or it raises."""
         _part_b_check(self, b)
         if self.device.type == "cpu" and b.device.type == "cpu":
             return part_solve_plain(self.levels, self.direct, b)
@@ -749,12 +772,17 @@ class PartitionFactor:
 
 
 def _part_b_check(fac, b):
-    """b (n,) or (B, n), B >= 1, for a factor of n rows."""
+    """b (..., n) with at least one row, for a factor of n rows; the rows
+    a multiple of a per-lane factor's lanes."""
     if not isinstance(b, torch.Tensor):
         raise TypeError("b must be a tensor")
-    if b.dim() not in (1, 2) or b.shape[-1] != fac.n or b.numel() == 0:
-        raise ValueError(f"b (n,) or (B, n) with n = {fac.n} and B >= 1 "
+    if b.dim() < 1 or b.shape[-1] != fac.n or b.numel() == 0:
+        raise ValueError(f"b (..., n) with n = {fac.n} and a row or more "
                          f"expected, got {tuple(b.shape)}")
+    R = b.numel() // fac.n
+    if fac.lanes is not None and R % fac.lanes:
+        raise ValueError(f"{R} right sides for a factor of {fac.lanes} "
+                         "lanes: a multiple of the lanes expected")
 
 
 def _part_card_check(ts, device=None):
@@ -780,23 +808,28 @@ def _part_factor_card(ts):
     the last."""
     _part_card_check(ts)
     a, dd, c = (v for _n, v in ts)
-    if a.shape[0] >= 2 ** 31:
-        raise ValueError(f"n = {a.shape[0]}: the kernel indexes rows in int32")
+    if a.numel() >= 2 ** 31:
+        raise ValueError(f"{a.numel()} rows: the kernel indexes rows in "
+                         "int32")
+    # a per-lane factor's arrays and entries take the lanes first
+    lead = tuple(a.shape[:-1])
+    suffix = "_lanes64" if lead else "64"
     levels = []
-    sizes = part_sizes(a.shape[0])
+    sizes = part_sizes(a.shape[-1])
     with launcher(a.device) as launch:
         for n, C in zip(sizes, sizes[1:]):
-            buf = a.new_empty((3 * _PI + 13, C))
-            w, ip, t = buf[:_PI], buf[_PI:2 * _PI], buf[2 * _PI:3 * _PI]
-            edge = buf[3 * _PI:3 * _PI + 10]
-            launch("pe_tridiag_part_factor64", a, dd, c, n, w, ip, t, edge,
-                   *buf[3 * _PI + 10:])
+            w, ip, t = a.new_empty((3,) + lead + (_PI, C))
+            edge = a.new_empty(lead + (10, C))
+            a2, d2, c2 = a.new_empty((3,) + lead + (C,))
+            launch("pe_tridiag_part_factor" + suffix, a, dd, c, n, *lead,
+                   w, ip, t, edge, a2, d2, c2)
             tridiag_part64.launches += 2
             levels.append(PartLevel(n, w, ip, t, edge))
-            a, dd, c = buf[3 * _PI + 10:]
+            a, dd, c = a2, d2, c2
         n = sizes[-1]
-        w, ip, t = a.new_empty((3, n))
-        launch("pe_tridiag_part_direct_factor64", a, dd, c, n, w, ip, t)
+        w, ip, t = a.new_empty((3,) + lead + (n,))
+        launch("pe_tridiag_part_direct_factor" + suffix, a, dd, c, n,
+               *lead, w, ip, t)
         tridiag_part64.launches += 1
     return levels, PartDirect(n, w, ip, t)
 
@@ -804,37 +837,54 @@ def _part_factor_card(ts):
 @kernel_wrapper
 def tridiag_part64(fac: PartitionFactor, b):
     """x = T^-1 b on the card by ``csrc/tridiag_part.cu`` through the
-    card's factor ``fac``: b (n,) or (B, n) float64, contiguous, on the
-    factor's device; x of b's shape.  Bit for bit the plain twin
-    ``part_solve_plain`` on the same factor; a repeat run is
-    bit-identical.  2L + 1 launches for L levels above the last (7 at n
-    = 10^6); ``tridiag_part64.launches`` counts them and the factors'."""
+    card's factor ``fac``: b (..., n) float64 on the factor's device, its
+    last axis contiguous; x of b's shape, contiguous.  The per-lane form
+    reads rows that lie evenly n or more apart in place (the band's rows
+    of a wider right side); any other layout is copied to (R, n) first.
+    Bit for bit the plain twin ``part_solve_plain`` on the same factor; a
+    repeat run is bit-identical.  2L + 1 launches for L levels above the
+    last (7 at n = 10^5 and 10^6); ``tridiag_part64.launches`` counts
+    them and the factors'."""
     _part_b_check(fac, b)
     if fac.device.type != "cuda":
         raise ValueError("the factor lies on the CPU: its solve is the "
                          "plain twin's, on CPU tensors")
-    _part_card_check((("b", b),), fac.device)
-    B = 1 if b.dim() == 1 else b.shape[0]
+    # a row of b: its dtype, device and last axis
+    _part_card_check((("b", b[(0,) * (b.dim() - 1)]),), fac.device)
+    shape, b = b.shape, b.reshape(-1, fac.n)
+    R, ld = b.shape[0], b.stride(0) if b.shape[0] > 1 else fac.n
+    if (fac.lanes is None and not b.is_contiguous()) or ld < fac.n:
+        b = b.contiguous()
+        ld = fac.n
+    suffix = "64" if fac.lanes is None else "_lanes64"
+
+    def rows(q, n):
+        """The per-lane entries' lanes and distance between p's rows: b's
+        at the top level (q None), the level's n below."""
+        if fac.lanes is None:
+            return ()
+        return fac.lanes, ld if q is None else n
+
     ps, qs = [b], [None]
     d = fac.direct
     with launcher(b.device) as launch:
         for lev in fac.levels:
-            p2, q2 = b.new_empty((2, B, lev.edge.shape[1]))
-            launch("pe_tridiag_part_reduce64", ps[-1], qs[-1], lev.n, B,
-                   lev.w, lev.ip, lev.t, lev.edge, p2, q2)
+            p2, q2 = b.new_empty((2, R, lev.edge.shape[-1]))
+            launch("pe_tridiag_part_reduce" + suffix, ps[-1], qs[-1], lev.n,
+                   R, *rows(qs[-1], lev.n), lev.w, lev.ip, lev.t, lev.edge,
+                   p2, q2)
             ps.append(p2)
             qs.append(q2)
-        x = b.new_empty((B, d.n)) if fac.levels else torch.empty_like(b)
-        launch("pe_tridiag_part_direct64", ps[-1], qs[-1], d.n, B, d.w,
-               d.ip, d.t, x)
+        x = b.new_empty((R, d.n))
+        launch("pe_tridiag_part_direct" + suffix, ps[-1], qs[-1], d.n, R,
+               *rows(qs[-1], d.n), d.w, d.ip, d.t, x)
         for lev, p, q in zip(fac.levels[::-1], ps[-2::-1], qs[-2::-1]):
-            out = (b.new_empty((B, lev.n)) if q is not None
-                   else torch.empty_like(b))
-            launch("pe_tridiag_part_expand64", p, q, lev.n, B, lev.w,
-                   lev.ip, lev.t, lev.edge, x, out)
+            out = b.new_empty((R, lev.n))
+            launch("pe_tridiag_part_expand" + suffix, p, q, lev.n, R,
+                   *rows(q, lev.n), lev.w, lev.ip, lev.t, lev.edge, x, out)
             x = out
     tridiag_part64.launches += 2 * len(fac.levels) + 1
-    return x
+    return x.reshape(shape)
 
 
 def _residual(dl, d, du, z, v, e, i):
@@ -873,7 +923,8 @@ def border_solve(dl, d, du, z, e, rhs_b, refine: int = 2):
     raises on anything else (``ValueError`` for a 2-D T, ``TypeError``
     for CUDA float32).  The JAX package's ``border_solve`` also takes a
     batched T."""
-    if not isinstance(e, torch.Tensor) or e.dim() != 1:
-        raise ValueError("e must be a 1-D tensor")
+    for name, v in (("dl", dl), ("d", d), ("du", du), ("e", e)):
+        if not isinstance(v, torch.Tensor) or v.dim() != 1:
+            raise ValueError(f"{name} must be a 1-D tensor")
     return border_solve_part(PartitionFactor(dl, d, du), dl, d, du, z, e,
                              rhs_b, refine)

@@ -30,7 +30,8 @@ Spans at the layer boundaries (nested as the host's calls):
 ``pe.bicgstab.escalate`` (the chain preconditioner's pass after Jacobi
 failed); ``pe.border_solve`` > ``pe.tridiag_part`` (the partitioned
 solve's factor and first two solves), ``pe.refine`` > ``pe.tridiag_part``;
-``pe.pcr`` (``tridiag_solve``).  Counters: ``host_syncs``; ``bicgstab.iterations_launched`` (iterations that every
+``pe.chain_factor`` and ``pe.chain_apply`` > ``pe.tridiag_part`` (the
+chain's band in float64); ``pe.pcr`` (``tridiag_solve``).  Counters: ``host_syncs``; ``bicgstab.iterations_launched`` (iterations that every
 lane of a BiCGStab call ran on the device, stopped lanes included);
 ``bicgstab.escalations`` (Jacobi solves that failed and ran again with
 the chain preconditioner); ``chain.factors``, ``chain.applies``.

@@ -1101,12 +1101,14 @@ def test_chain_preconditioner_card_matches_cpu(cuda):
     chain preconditioner and converges, both within 1e-5 of max|x| of
     scipy's direct solve (``tests/test_torch_sparse_chain.py``'s
     tolerance) and of each other; the marked layout's next solve on the
-    card runs the chain alone, and a repeat of it is bit-identical."""
+    card runs the chain alone, and a repeat of it is bit-identical.  With
+    values (B, nnz) the band is factored one T a lane, on the card by the
+    per-lane kernel, to the same tolerance."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spl
 
     from phy_engine_tpu_torch import trace
-    from phy_engine_tpu_torch.ops import sparse
+    from phy_engine_tpu_torch.ops import sparse, tridiag
     rows, cols, vals, z = workloads.sparse_mesh_coo(2000, 20)
     n = len(z)
     xe = spl.splu(sp.csc_matrix((vals, (rows, cols)), shape=(n, n))).solve(z)
@@ -1135,6 +1137,25 @@ def test_chain_preconditioner_card_matches_cpu(cuda):
     x2, ok2, it2 = sparse.bicgstab(*args, layout=lay)
     assert bool(ok1.all()) and int(it1.max()) < 100
     assert torch.equal(x1, x2) and torch.equal(it1, it2)
+    # values (B, nnz), lane 1's the pattern's scaled by 2: the band one T
+    # a lane (the per-lane kernel on the card), the same answers within
+    # the tolerance, on the card and the CPU
+    vb = np.stack([vals, 2.0 * vals])
+    want = np.stack([xe, 0.35 * xe])
+    for dev in ("cpu", cuda):
+        lay = lays[str(dev)]
+        pre = sparse.ChainPreconditioner(lay, torch.as_tensor(vb, device=dev))
+        assert pre.tri.lanes == 2
+        launches = tridiag.tridiag_part64.launches
+        x, ok, it = sparse.bicgstab(None, None, torch.as_tensor(vb, device=dev),
+                                    torch.as_tensor(zb, device=dev), n,
+                                    layout=lay)
+        moved = tridiag.tridiag_part64.launches - launches
+        assert moved > 0 if str(dev) != "cpu" else moved == 0
+        assert bool(ok.all()) and int(it.max()) < 100
+        out[str(dev)] = x.cpu().numpy()
+        assert np.abs(out[str(dev)] - want).max() <= 1e-5 * scale
+    assert np.abs(out[str(cuda)] - out["cpu"]).max() <= 1e-5 * scale
 
 
 @pytest.mark.cuda
@@ -1210,7 +1231,8 @@ def test_tridiag_part_matches_plain_and_scipy(cuda, n, lanes):
 @pytest.mark.cuda
 def test_tridiag_part_refuses_what_it_does_not_take(cuda):
     """float32, non-contiguous and mixed-device inputs raise before any
-    launch is counted."""
+    launch is counted, to the shared and to the per-lane entry, as does a
+    per-lane solve whose rows are not a multiple of the lanes."""
     from phy_engine_tpu_torch.ops import tridiag
     dl, d, du, b = (torch.as_tensor(a, device=cuda)
                     for a in _tridiag_case(1000, 4))
@@ -1232,7 +1254,97 @@ def test_tridiag_part_refuses_what_it_does_not_take(cuda):
         tridiag.PartitionFactor(dl.cpu(), d.cpu(), du.cpu()).solve(b)
     with pytest.raises(ValueError):
         fac.solve(b[:, :-1].contiguous())
+    # the per-lane entry: T (4, n)
+    T = [torch.stack([v] * 4) for v in (dl, d, du)]
+    lanes = tridiag.PartitionFactor(*T)
+    before = tridiag.tridiag_part64.launches
+    with pytest.raises(TypeError):
+        tridiag.PartitionFactor(*(v.float() for v in T))
+    with pytest.raises(TypeError):
+        lanes.solve(b.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        lanes.solve(b.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        tridiag.PartitionFactor(T[0], T[1].t().contiguous().t(), T[2])
+    with pytest.raises(ValueError):
+        lanes.solve(b.cpu())
+    with pytest.raises(ValueError):
+        tridiag.PartitionFactor(T[0], T[1].cpu(), T[2])
+    with pytest.raises(ValueError):
+        tridiag.PartitionFactor(*(v.cpu() for v in T)).solve(b)
+    with pytest.raises(ValueError):
+        lanes.solve(b[:3])
+    with pytest.raises(ValueError):
+        lanes.solve(torch.cat([b, b[:1]]))
     assert tridiag.tridiag_part64.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per", [1, 2])
+@pytest.mark.parametrize("lanes,n", [(3, 20), (3, 1000), (64, 100_000)])
+def test_tridiag_part_per_lane_matches_plain_and_scipy(cuda, lanes, n, per):
+    """The per-lane kernel, T (lanes, n), against its plain twin on the
+    same card tensors, factor and solve bit for bit, and each lane against
+    scipy within 1e-12 of max|x|: the direct level alone, one level, and
+    the chain cell's band (three levels); ``per`` right sides a lane,
+    the band's rows of a wider array (rows n + 1 apart) at ``per`` 1, and
+    the same rows as (per, lanes, n).  A repeat run is bit-identical; the
+    launches are the factor's 2L + 1 and the solve's 2L + 1 a call."""
+    from phy_engine_tpu_torch.ops import tridiag
+    rng = np.random.default_rng(n + lanes)
+    dl, du = -rng.uniform(0, 1, (lanes, n)), -rng.uniform(0, 1, (lanes, n))
+    d = np.abs(dl) + np.abs(du) + rng.uniform(0.5, 1.5, (lanes, n))
+    b = rng.standard_normal((per * lanes, n + (per == 1)))
+    T = [torch.as_tensor(v, device=cuda) for v in (dl, d, du)]
+    bd = torch.as_tensor(b, device=cuda)[:, :n]
+    before = tridiag.tridiag_part64.launches
+    fac = tridiag.PartitionFactor(*T)
+    x, x2 = fac.solve(bd), fac.solve(bd)
+    torch.cuda.synchronize()
+    L = len(tridiag.part_sizes(n)) - 1
+    assert tridiag.tridiag_part64.launches - before == 3 * (2 * L + 1)
+    levels, direct = tridiag.part_factor_plain(*T)
+    for got, want in zip(fac.levels + [fac.direct], levels + [direct]):
+        assert got[0] == want[0]
+        for u, v in zip(got[1:], want[1:]):
+            assert torch.equal(u, v)
+    plain = tridiag.part_solve_plain(fac.levels, fac.direct, bd)
+    assert x.shape == bd.shape and x.is_contiguous()
+    assert torch.equal(x, x2) and torch.equal(x, plain)
+    # the same rows as (per, lanes, n)
+    x3 = fac.solve(bd.reshape(per, lanes, n))
+    assert torch.equal(x3.reshape(x.shape), x)
+    xc = x.cpu().numpy()
+    for r in sorted({0, lanes - 1, per * lanes - 1}):
+        k = r % lanes
+        ref = _tridiag_ref(dl[k], d[k], du[k], b[r, :n])
+        assert np.abs(xc[r] - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 100_000])
+def test_tridiag_part_per_lane_of_equal_lanes_is_the_shared_kernel(cuda, n):
+    """A per-lane factor whose lanes all hold one T: its levels are the
+    shared kernel's factor lane by lane, and its answers the shared
+    kernel's, bit for bit, for right sides contiguous and with rows n + 1
+    apart."""
+    from phy_engine_tpu_torch.ops import tridiag
+    dl, d, du, b = (torch.as_tensor(a, device=cuda)
+                    for a in _tridiag_case(n, 8))
+    shared = tridiag.PartitionFactor(dl, d, du)
+    lanes = tridiag.PartitionFactor(*(v.expand(4, n).contiguous()
+                                      for v in (dl, d, du)))
+    for got, want in zip(lanes.levels + [lanes.direct],
+                         shared.levels + [shared.direct]):
+        for u, v in zip(got[1:], want[1:]):
+            for k in range(4):
+                assert torch.equal(u[k], v)
+    assert torch.equal(lanes.solve(b), shared.solve(b))
+    # rows n + 1 apart: read in place by the per-lane form, copied for
+    # the shared one
+    wide = torch.cat([b, b[:, :1]], 1)[:, :n]
+    assert torch.equal(lanes.solve(wide), shared.solve(wide))
+    assert torch.equal(shared.solve(wide), shared.solve(b))
 
 
 @pytest.mark.cuda

@@ -1,13 +1,16 @@
 """The sparse route's chain preconditioner (``ops/sparse.py``:
 ``ChainPlan``, ``ChainPreconditioner``, ``bicgstab``'s escalation) and
-``ops/tridiag.py::PCRFactor``, on the CPU.
+its band's factors (``ops/tridiag.py``: ``PartitionFactor`` in float64,
+shared or one T a lane, ``PCRFactor`` in float32), on the CPU.
 
 The route runs Jacobi until a pattern's solve leaves a lane unconverged,
 then that solve again with the chain preconditioner, and the pattern's
 later solves with it alone.  Tolerances: against a direct or float64 CG
 answer 1e-5 of the source's value (the route stops at a relative
 residual of 1e-10, checked at 1e-9; a 2,000-resistor chain's condition
-number turns that into gaps of 1e-7 to 2e-6); ``PCRFactor`` against
+number turns that into gaps of 1e-7 to 2e-6); one application of the
+preconditioner of a chain with no links (M = A) against scipy's direct
+solve 1e-9 of max|x|; ``PCRFactor`` against
 ``tridiag_solve`` 1e-13 of max|x| (the same rounds, its multiply-adds
 fused where the platform fuses them).
 """
@@ -197,3 +200,33 @@ def test_pcr_factor_matches_tridiag_solve(right_sides):
     want = tridiag.tridiag_solve(dl, d, du, b)
     assert x.shape == want.shape
     assert float((x - want).abs().max()) <= 1e-13 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_chain_preconditioner_takes_the_factor_its_values_call_for(lanes):
+    """Values (nnz,) give the band a shared ``PartitionFactor``, values
+    (B, nnz) one T a lane, float32 values ``PCRFactor``.  On a chain with
+    no links (M = A, two border rows placed by the plan's permutation)
+    an application of M^-1 to (B, n) right sides is each lane's direct
+    solve; lane l's values are the pattern's scaled by 1 + l."""
+    rows, cols, vals, z = _two_source_chain(n=700, links=0)
+    nu = len(z)
+    lay = sparse.COOLayout(rows, cols, nu)
+    rng = np.random.default_rng(11)
+    B = 3 if lanes is None else lanes
+    r = rng.standard_normal((B, nu))
+    scale = np.ones(B) if lanes is None else 1.0 + np.arange(B)
+    v = torch.as_tensor(vals if lanes is None else scale[:, None] * vals)
+    pre = sparse.ChainPreconditioner(lay, v)
+    assert isinstance(pre.tri, tridiag.PartitionFactor)
+    assert pre.tri.lanes == lanes and pre.tri.n == lay.chain.m
+    x = pre(torch.as_tensor(r)).numpy()
+    lu = spl.splu(sp.csc_matrix((vals, (rows, cols)), shape=(nu, nu)))
+    for k in range(B):
+        xe = lu.solve(r[k]) / scale[k]
+        assert np.abs(x[k] - xe).max() <= 1e-9 * np.abs(xe).max()
+    pre32 = sparse.ChainPreconditioner(lay, v.float())
+    assert isinstance(pre32.tri, tridiag.PCRFactor)
+    x32 = pre32(torch.as_tensor(r, dtype=torch.float32)).double().numpy()
+    # float32 on a chain of condition ~n^2: 1e-3 of max|x| read
+    assert np.abs(x32 - x).max() <= 1e-2 * np.abs(x).max()

@@ -264,6 +264,53 @@ def test_partition_twin_matches_dense(n, batch):
     assert np.allclose(x, ref.reshape(b.shape), rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("per", [1, 2])
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("n", [1, 20, 31, 32, 33, 64, 65, 1000, 2049])
+def test_partition_twin_per_lane_matches_dense(n, lanes, per):
+    """The twin with one T a lane, (lanes, n), against numpy's dense solve
+    of each lane's T: ``per`` right sides a lane, (per lanes, n), row r
+    solved with lane r mod lanes's T, and the same rows as (per, lanes,
+    n); the n of ``test_partition_twin_matches_dense``."""
+    dl, d, du, _b = _system(n, 3 * n + lanes, (lanes,))
+    b = np.random.default_rng(n).standard_normal((per * lanes, n))
+    fac = tt.PartitionFactor(_t(dl), _t(d), _t(du))
+    assert fac.lanes == lanes
+    assert len(fac.levels) == len(tt.part_sizes(n)) - 1
+    for lev in fac.levels:
+        C = -(-lev.n // tt.PART_M)
+        assert lev.w.shape == (lanes, tt.PART_M - 1, C)
+        assert lev.edge.shape == (lanes, 10, C)
+    assert fac.direct.w.shape == (lanes, fac.direct.n)
+    x = fac.solve(_t(b)).numpy()
+    assert x.shape == b.shape
+    # (per, lanes, n): the same rows in order
+    assert np.array_equal(fac.solve(_t(b).reshape(per, lanes, n)).numpy(),
+                          x.reshape(per, lanes, n))
+    for r in range(per * lanes):
+        k = r % lanes
+        ref = np.linalg.solve(_dense(dl[k], d[k], du[k]), b[r])
+        assert np.allclose(x[r], ref, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("n", [20, 1000, 2049])
+def test_partition_per_lane_factor_of_equal_lanes_is_the_shared_one(n):
+    """A per-lane factor whose lanes all hold one T: each level's arrays
+    are the shared factor's, lane by lane, and its answers the shared
+    factor's, bit for bit."""
+    dl, d, du, b = _shared(n, 5 * n, (6,))
+    shared = tt.PartitionFactor(_t(dl), _t(d), _t(du))
+    lanes = tt.PartitionFactor(*(_t(np.tile(v, (3, 1))) for v in (dl, d, du)))
+    for got, want in zip(lanes.levels + [lanes.direct],
+                         shared.levels + [shared.direct]):
+        assert got[0] == want[0]
+        for u, v in zip(got[1:], want[1:]):
+            for k in range(3):
+                assert torch.equal(u[k], v)
+    assert torch.equal(lanes.solve(_t(b)), shared.solve(_t(b)))
+    assert torch.equal(lanes.solve(_t(b[:3])), shared.solve(_t(b[:3])))
+
+
 @pytest.mark.parametrize("N", [64, 400, 5000])
 def test_partition_border_solve_matches_jax_and_dense(N):
     """``border_solve_part`` with the twin's factor on the bordered ladder
@@ -335,23 +382,42 @@ def test_border_solve_on_the_cpu_takes_the_twin(monkeypatch):
 
 def test_partition_factor_on_the_cpu_counts_no_launch():
     """The twin factors and solves CPU tensors of any shape it takes with
-    no launch counted; 2-D or ragged diagonals raise, in
-    ``border_solve`` too, as does a 2-D border."""
+    no launch counted: a shared T (n,) and a per-lane T (B, n).  Ragged
+    diagonals raise, as do 3-D ones, a right side whose rows are not a
+    multiple of a per-lane factor's lanes, and in ``border_solve`` a 2-D
+    T or border."""
     dl, d, du, b = _shared(1000, 4, (2,))
     before = tt.tridiag_part64.launches
     fac = tt.PartitionFactor(_t(dl), _t(d), _t(du))
     fac.solve(_t(b))
     fac.solve(_t(b[0]))
+    lanes = tt.PartitionFactor(_t(dl)[None], _t(d)[None], _t(du)[None])
+    assert lanes.lanes == 1 and fac.lanes is None
+    lanes.solve(_t(b))
+    two = tt.PartitionFactor(*(_t(np.stack([v, v])) for v in (dl, d, du)))
+    assert two.lanes == 2
+    two.solve(_t(np.concatenate([b, b])))
     assert tt.tridiag_part64.launches == before
+    with pytest.raises(ValueError):
+        two.solve(_t(b[0]))
+    with pytest.raises(ValueError):
+        two.solve(_t(np.concatenate([b, b[:1]])))
     with pytest.raises(ValueError):
         tt.border_solve(_t(dl)[None], _t(d)[None], _t(du)[None], _t(b),
                         _t(b[0]), _t(1.0))
     with pytest.raises(ValueError):
         tt.border_solve(_t(dl), _t(d), _t(du), _t(b), _t(b), _t([1.0, 2.0]))
     with pytest.raises(ValueError):
-        tt.PartitionFactor(_t(dl)[None], _t(d)[None], _t(du)[None])
+        tt.PartitionFactor(_t(dl)[None, None], _t(d)[None, None],
+                           _t(du)[None, None])
     with pytest.raises(ValueError):
         tt.PartitionFactor(_t(dl), _t(d)[:-1], _t(du))
+    with pytest.raises(ValueError):
+        tt.PartitionFactor(_t(dl)[None], _t(d)[None], _t(du))
+    with pytest.raises(ValueError):
+        tt.PartitionFactor(*(_t(np.stack([v, v]))[:, :-1] if k == 1
+                             else _t(np.stack([v, v]))
+                             for k, v in enumerate((dl, d, du))))
     with pytest.raises(ValueError):
         fac.solve(_t(b)[:, :-1])
 
